@@ -1,0 +1,331 @@
+"""Drive the PyTorch/CUDA port's main path once on one NVIDIA card.
+
+    python3 chip_smoke.py
+
+Phases (the first that fails ends the run with a nonzero exit):
+
+1. Print the card's name and power limit, and build every CUDA kernel
+   from the sources in the checkout (one nvcc per source, in parallel).
+2. Hold each kernel against its plain PyTorch version on the card: the
+   `spray_select` kernel over every spray method x ell x path count, at
+   131,072 decisions, plus ragged batches and the main path's row shape.
+   Results must be equal; each kernel's time is printed beside the plain
+   version's.
+3. Run every case of `tests/golden/transport_seed.npz` and
+   `transport_policies.npz` on the card and compare the five golden fields
+   bit for bit.
+4. Full width: `simulate_flows` with 4,096 flows on a 64-leaf, 16-spine
+   fabric for WAM and ECMP; every flow must finish.  The WAM run is
+   repeated with the spray held to its plain version: outputs must be
+   identical.
+
+The last lines are the card's name and power limit, one JSON object with a
+row per kernel, and ``{"ok": true, "device": {...}}``.  Without a CUDA
+device the script exits nonzero and prints no result.
+"""
+from __future__ import annotations
+
+import json
+import math
+import os
+import subprocess
+import sys
+import time
+
+import numpy as np
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+sys.path.insert(0, os.path.join(ROOT, "src"))
+
+import torch  # noqa: E402
+
+from repro_torch import random as prng  # noqa: E402
+from repro_torch.core.spray import SprayMethod, spray_key  # noqa: E402
+from repro_torch.kernels import build  # noqa: E402
+from repro_torch.kernels.spray_select import (  # noqa: E402
+    spray_select,
+    spray_select_plain,
+)
+from repro_torch.net.fabric import FabricParams  # noqa: E402
+from repro_torch.net.policies import Policy  # noqa: E402
+from repro_torch.net.topology import leaf_spine, null_schedule  # noqa: E402
+from repro_torch.net.transport import (  # noqa: E402
+    TransportConfig,
+    simulate_flows,
+    simulate_message,
+)
+
+GOLDEN_DIR = os.path.join(ROOT, "tests", "golden")
+GOLDEN_FIELDS = ("cct", "sent_total", "dropped_total", "final_b", "received")
+HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory rate
+CUDA_CORE_OPS_PER_S = 67e12  # H100 SXM float32 rate outside the tensor cores
+
+# The golden case table of tests/golden/gen_golden_transport.py, copied so
+# the script runs where the JAX package cannot be imported.  A CPU test
+# holds the two tables equal.
+GOLDEN_FABRIC = dict(capacity=4.0, latency=4, queue_limit=16.0, ecn_threshold=6.0,
+                     degrade_p=0.02, recover_p=0.1, degrade_factor=0.1,
+                     fb_delay=8, ring_len=64)
+GOLDEN_TOPOLOGY = dict(n_leaves=4, n_spines=4,
+                       pairs=((0, 1), (0, 2), (3, 1), (2, 3)), uplink_capacity=8.0)
+_BASELINES = ("ECMP", "RR", "RAND_STATIC", "RAND_ADAPTIVE", "WAM")
+_NEW = ("PRIME", "STRACK", "CC_COUPLED")
+
+
+def _message_cases(file, policies):
+    return [dict(file=file, name=f"{p}/{'coded' if coded else 'arq'}", fabric="bundle",
+                 n=4, cfg=dict(policy=p, coded=coded, rate=16), n_packets=256,
+                 seed=7, horizon=512)
+            for p in policies for coded in (True, False)]
+
+
+GOLDEN_CASES = (
+    _message_cases("transport_seed.npz", _BASELINES)
+    + [dict(file="transport_seed.npz", name="WAM/default8", fabric="bundle", n=8,
+            cfg=dict(policy="WAM"), n_packets=512, seed=0, horizon=1024)]
+    + _message_cases("transport_policies.npz", _NEW)
+    + [dict(file=f, name=f"FLOWS/{p}", fabric="leaf_spine", n=4,
+            cfg=dict(policy=p, rate=16), n_packets=128, seed=3, horizon=512)
+       for f, p in [("transport_seed.npz", "WAM")]
+       + [("transport_policies.npz", p) for p in _NEW]]
+)
+
+# the full-width cell
+WIDE_LEAVES, WIDE_SPINES, WIDE_FLOWS = 64, 16, 4096
+WIDE_RATE, WIDE_PACKETS, WIDE_HORIZON = 32, 256, 2048
+
+
+def golden_fabric(n: int, device) -> FabricParams:
+    g = GOLDEN_FABRIC
+
+    def full(v, dtype=torch.float32):
+        return torch.full((n,), v, dtype=dtype, device=device)
+
+    return FabricParams(
+        capacity=full(g["capacity"]), latency=full(g["latency"], torch.int32),
+        queue_limit=full(g["queue_limit"]), ecn_threshold=full(g["ecn_threshold"]),
+        degrade_p=full(g["degrade_p"]), recover_p=full(g["recover_p"]),
+        degrade_factor=full(g["degrade_factor"]), fb_delay=g["fb_delay"],
+        ring_len=g["ring_len"])
+
+
+def golden_config(cfg: dict) -> TransportConfig:
+    kw = dict(cfg)
+    return TransportConfig(policy=Policy[kw.pop("policy")], **kw)
+
+
+def wide_pairs():
+    L = WIDE_LEAVES
+    return [(f % L, (f % L + 1 + (f // L) % (L - 1)) % L) for f in range(WIDE_FLOWS)]
+
+
+def card_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60)
+    return out.stdout.strip().splitlines()[0]
+
+
+def time_ms(fn, iters: int = 100, warmup: int = 10) -> float:
+    """Mean time per call on the card's clock (CUDA events around eager
+    calls: includes the host's launch overhead when it is the longer)."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def device_ms(fn, iters: int = 100) -> float:
+    """Mean device time per call: `iters` calls captured in one CUDA graph
+    and replayed, so the host's launch overhead drops out."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def spray_inputs(rng, rows: int, B: int, n: int, ell: int, dev):
+    m = 1 << ell
+    counters = torch.as_tensor(rng.integers(0, 2 ** 32, (rows, B), dtype=np.int64), device=dev)
+    b = np.stack([np.bincount(rng.integers(0, n, m), minlength=n) for _ in range(rows)])
+    c = torch.as_tensor(np.cumsum(b, axis=1).astype(np.int32), device=dev)
+    seeds = torch.as_tensor(np.stack([rng.integers(0, m, rows),
+                                      rng.integers(0, m // 2, rows) * 2 + 1], axis=1),
+                            device=dev)
+    return counters, c, seeds
+
+
+def phase_kernels(dev):
+    """spray_select against its plain version; returns the kernel's row."""
+    rng = np.random.default_rng(0)
+    checked = 0
+    shapes = [(1, 131072)]
+    for method in SprayMethod:
+        for ell in (8, 10, 16):
+            for n in (1, 4, 16, 128):
+                for rows, B in shapes:
+                    cnt, c, seeds = spray_inputs(rng, rows, B, n, ell, dev)
+                    got = spray_select(cnt, c, seeds, ell=ell, method=int(method))
+                    want = spray_select_plain(cnt, c, seeds, ell=ell, method=int(method))
+                    torch.cuda.synchronize()
+                    if not torch.equal(got, want):
+                        raise AssertionError(f"spray_select differs: {method.name} ell={ell} n={n}")
+                    checked += 1
+    for rows, B, n in ((1, 131071, 16), (3, 1000, 7), (WIDE_FLOWS, WIDE_RATE, WIDE_SPINES)):
+        for method in SprayMethod:
+            cnt, c, seeds = spray_inputs(rng, rows, B, n, 10, dev)
+            got = spray_select(cnt, c, seeds, ell=10, method=int(method))
+            want = spray_select_plain(cnt, c, seeds, ell=10, method=int(method))
+            torch.cuda.synchronize()
+            if not torch.equal(got, want):
+                raise AssertionError(f"spray_select differs at [{rows}, {B}] n={n} {method.name}")
+            checked += 1
+    print(f"[kernels] spray_select equals its plain version in {checked} cases")
+
+    # the main path's shape: one row per flow, rate_cap lanes, n = 16
+    rows, B, n, ell = WIDE_FLOWS, WIDE_RATE, WIDE_SPINES, 10
+    cnt, c, seeds = spray_inputs(rng, rows, B, n, ell, dev)
+    cnt32 = torch.where(cnt >= 2 ** 31, cnt - 2 ** 32, cnt).to(torch.int32)
+    seeds32 = seeds.to(torch.int32)
+    method = int(SprayMethod.SHUFFLE_1)
+    out = spray_select(cnt32, c, seeds32, ell=ell, method=method)
+    keys = spray_key(cnt, seeds[:, :1], seeds[:, 1:], ell, method).to(torch.int32)
+    calls = {
+        "kernel": lambda: spray_select(cnt32, c, seeds32, ell=ell, method=method),
+        "plain": lambda: spray_select_plain(cnt, c, seeds, ell=ell, method=method),
+        "searchsorted": lambda: torch.searchsorted(c, keys, right=True),
+    }
+    eager = {k: time_ms(f) for k, f in calls.items()}
+    graphed = {k: device_ms(f) for k, f in calls.items()}
+    print("[kernels] eager ms per call: " + ", ".join(f"{k} {v:.6f}" for k, v in eager.items()))
+    print("[kernels] graph-replayed ms per call: "
+          + ", ".join(f"{k} {v:.6f}" for k, v in graphed.items()))
+    ms, plain_ms, library_ms = graphed["kernel"], graphed["plain"], graphed["searchsorted"]
+    err = (out.to(torch.int64) - spray_select_plain(cnt, c, seeds, ell=ell, method=method)).abs().max()
+    nbytes = 4 * (cnt32.numel() + c.numel() + seeds32.numel() + out.numel())
+    ops = rows * B * (5 + 2 * n)
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / CUDA_CORE_OPS_PER_S * 1e3
+    print(f"[kernels] spray_select [{rows}x{B}] n={n}: kernel {ms:.6f} ms, plain {plain_ms:.6f} ms, "
+          f"searchsorted {library_ms:.6f} ms, bound {max(t_bytes, t_ops):.6f} ms")
+    return dict(name="spray_select", route="cuda",
+                source="src/repro_torch/kernels/csrc/spray_select.cu",
+                replaces="src/repro/kernels/spray_select.py:79", launches=0,
+                max_abs_err=float(err), ms=ms, plain_ms=plain_ms,
+                bound_ms=max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations",
+                library_ms=library_ms)
+
+
+def phase_goldens(dev):
+    files = {f: np.load(os.path.join(GOLDEN_DIR, f)) for f in
+             ("transport_seed.npz", "transport_policies.npz")}
+    g = GOLDEN_TOPOLOGY
+    topo = leaf_spine(g["n_leaves"], g["n_spines"], g["pairs"],
+                      uplink_capacity=g["uplink_capacity"], device=dev)
+    sched = null_schedule(topo.links, device=dev)
+    t0 = time.time()
+    for case in GOLDEN_CASES:
+        cfg = golden_config(case["cfg"])
+        key = prng.PRNGKey(case["seed"])
+        if case["fabric"] == "bundle":
+            r = simulate_message(golden_fabric(case["n"], dev), cfg, case["n_packets"],
+                                 key, case["horizon"], device=dev)
+        else:
+            r = simulate_flows(topo, sched, cfg, case["n_packets"], key,
+                               case["horizon"], device=dev)
+        for field in GOLDEN_FIELDS:
+            got = getattr(r, field).cpu().numpy()
+            want = files[case["file"]][f"{case['name']}/{field}"]
+            if got.dtype != want.dtype or not np.array_equal(got, want):
+                raise AssertionError(f"golden {case['name']}/{field}: {got} != {want}")
+    print(f"[goldens] {len(GOLDEN_CASES)} cases bit-identical on "
+          f"{', '.join(GOLDEN_FIELDS)} ({time.time() - t0:.3f} s)")
+
+
+def run_wide(policy: str, dev, *, plain_spray: bool = False):
+    topo = leaf_spine(WIDE_LEAVES, WIDE_SPINES, wide_pairs(), uplink_capacity=8.0,
+                      degrade_p=0.002, device=dev)
+    sched = null_schedule(topo.links, device=dev)
+    cfg = TransportConfig(policy=Policy[policy], rate=WIDE_RATE, early_exit=True)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    r = simulate_flows(topo, sched, cfg, WIDE_PACKETS, prng.PRNGKey(0), WIDE_HORIZON,
+                       device=dev, plain_spray=plain_spray)
+    torch.cuda.synchronize()
+    return r, time.perf_counter() - t0, torch.cuda.max_memory_allocated()
+
+
+def phase_wide(dev, kernel_rows):
+    results = {}
+    for policy in ("WAM", "ECMP"):
+        spray_select.launches = 0
+        r, secs, peak = run_wide(policy, dev)
+        launches = spray_select.launches
+        if not bool(r.finished.all()):
+            raise AssertionError(f"{policy}: {int((~r.finished).sum())} flows did not finish")
+        cct = r.cct.cpu().numpy()
+        decisions = r.ticks_run * WIDE_FLOWS * WIDE_RATE
+        print(f"[wide] {policy}: ticks {r.ticks_run}, {1e3 * secs / r.ticks_run:.4f} ms/tick, "
+              f"{decisions / secs:.1f} path decisions/s, cct p50 {np.percentile(cct, 50)} "
+              f"p99 {np.percentile(cct, 99)}, peak memory {peak} B, "
+              f"spray_select launches {launches}")
+        results[policy] = r
+        if policy == "WAM":
+            if launches <= 0:
+                raise AssertionError("the WAM run never launched spray_select")
+            kernel_rows["spray_select"]["launches"] = launches
+    plain, _, _ = run_wide("WAM", dev, plain_spray=True)
+    for field in ("cct", "sent_total", "dropped_total", "final_b", "received",
+                  "finished", "link_served", "link_busy"):
+        if not torch.equal(getattr(plain, field), getattr(results["WAM"], field)):
+            raise AssertionError(f"WAM with the plain spray differs on {field}")
+    print("[wide] WAM with the plain spray on the card: identical outputs")
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    dev = torch.device("cuda")
+    card = card_line()
+    print(f"[card] {card}")
+    t0 = time.time()
+    logs = build.build_all()
+    for name, log in logs.items():
+        print(f"[build] {name}: {log.strip()}")
+    print(f"[build] {len(logs)} kernel(s) built in {time.time() - t0:.1f} s")
+    rows = {"spray_select": phase_kernels(dev)}
+    phase_goldens(dev)
+    phase_wide(dev, rows)
+    for row in rows.values():
+        if not all(math.isfinite(row[k]) for k in ("ms", "plain_ms", "bound_ms")):
+            raise AssertionError(f"non-finite timing in {row}")
+    print(card)
+    print(json.dumps({"kernels": list(rows.values())}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

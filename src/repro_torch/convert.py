@@ -1,0 +1,60 @@
+"""Carry the JAX package's parameters across to the port.
+
+The reference's parameter objects are handed over as dicts of numpy
+arrays plus their static ints (the tests extract them), so this module
+never sees a JAX type.  A JAX PRNG key is a ``uint32[2]`` array.
+"""
+from __future__ import annotations
+
+from typing import Mapping
+
+import numpy as np
+import torch
+
+from repro_torch.net.fabric import FabricParams
+from repro_torch.net.sender import SenderParams
+from repro_torch.net.topology import EventSchedule, TopologyParams
+
+__all__ = ["fabric_params", "topology_params", "event_schedule", "sender_params",
+           "prng_key"]
+
+
+def _tensors(arrays: Mapping[str, np.ndarray], names, device):
+    return {k: torch.as_tensor(np.array(arrays[k]), device=device) for k in names}
+
+
+def fabric_params(arrays: Mapping[str, np.ndarray], *, fb_delay: int,
+                  ring_len: int, device=None) -> FabricParams:
+    names = ("capacity", "latency", "queue_limit", "ecn_threshold", "degrade_p",
+             "recover_p", "degrade_factor")
+    return FabricParams(**_tensors(arrays, names, device), fb_delay=int(fb_delay),
+                        ring_len=int(ring_len))
+
+
+def topology_params(arrays: Mapping[str, np.ndarray], *, fb_delay: int,
+                    ring_len: int, device=None) -> TopologyParams:
+    names = ("route", "capacity", "queue_limit", "ecn_threshold", "latency",
+             "degrade_p", "recover_p", "degrade_factor")
+    return TopologyParams(**_tensors(arrays, names, device), fb_delay=int(fb_delay),
+                          ring_len=int(ring_len))
+
+
+def event_schedule(arrays: Mapping[str, np.ndarray], device=None) -> EventSchedule:
+    return EventSchedule(**_tensors(arrays, ("cap_scale", "bg_arrivals"), device))
+
+
+def sender_params(arrays: Mapping[str, np.ndarray]) -> SenderParams:
+    """Scalar sender knobs (policy, rate, cwnd, code_overhead,
+    ctrl_interval, sa, sb) as concrete Python values."""
+    as_int = ("policy", "rate", "ctrl_interval", "sa", "sb")
+    return SenderParams(**{k: (int(np.asarray(v)) if k in as_int
+                               else float(np.asarray(v)))
+                           for k, v in arrays.items()})
+
+
+def prng_key(key: np.ndarray, device=None) -> torch.Tensor:
+    """A legacy ``uint32[2]`` key as the port's int64 key tensor."""
+    key = np.asarray(key)
+    if key.shape != (2,) or key.dtype != np.uint32:
+        raise ValueError(f"expected a uint32[2] key, got {key.dtype}{key.shape}")
+    return torch.as_tensor(key.astype(np.int64), device=device)

@@ -1,0 +1,70 @@
+"""Discrete path profiles (paper §3): n bins holding m = 2**ell balls.
+
+``b`` is int32 ``[..., n]`` balls per bin and ``c`` its inclusive
+cumulative form; a leading batch axis (one profile per flow) is allowed.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+__all__ = ["PathProfile", "make_profile", "cumulative", "uniform_profile",
+           "quantize_counts", "quantize_profile"]
+
+
+@dataclasses.dataclass(frozen=True)
+class PathProfile:
+    b: torch.Tensor  # int32[..., n]
+    c: torch.Tensor  # int32[..., n] inclusive cumulative counts
+    ell: int
+
+    @property
+    def n(self) -> int:
+        return int(self.b.shape[-1])
+
+    @property
+    def m(self) -> int:
+        return 1 << self.ell
+
+
+def cumulative(b: torch.Tensor) -> torch.Tensor:
+    return torch.cumsum(b, dim=-1, dtype=torch.int32)
+
+
+def make_profile(b: torch.Tensor, ell: int) -> PathProfile:
+    b = b.to(torch.int32)
+    return PathProfile(b=b, c=cumulative(b), ell=ell)
+
+
+def uniform_profile(n: int, ell: int, device=None) -> PathProfile:
+    """As-even-as-possible integer split of m balls over n bins."""
+    base, extra = divmod(1 << ell, n)
+    b = np.full((n,), base, dtype=np.int32)
+    b[:extra] += 1
+    return make_profile(torch.as_tensor(b, device=device), ell)
+
+
+def quantize_counts(p, ell: int) -> np.ndarray:
+    """Largest-remainder quantization of fractions to m integer balls."""
+    p = np.asarray(p, dtype=np.float64)
+    if p.ndim != 1 or p.size == 0:
+        raise ValueError("profile must be a non-empty 1-D array")
+    if np.any(p < 0):
+        raise ValueError("profile fractions must be nonnegative")
+    s = p.sum()
+    if s <= 0:
+        raise ValueError("profile must have positive mass")
+    scaled = p / s * (1 << ell)
+    base = np.floor(scaled).astype(np.int64)
+    leftover = int((1 << ell) - base.sum())
+    if leftover > 0:
+        order = np.argsort(-(scaled - base), kind="stable")
+        base[order[:leftover]] += 1
+    return base.astype(np.int32)
+
+
+def quantize_profile(p, ell: int, device=None) -> PathProfile:
+    return make_profile(torch.as_tensor(quantize_counts(p, ell), device=device),
+                        ell)

@@ -13,3 +13,8 @@ except ImportError:  # property tests skip themselves via importorskip
 if settings is not None:
     settings.register_profile("ci", max_examples=25, deadline=None)
     settings.load_profile("ci")
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA card; skips where CUDA is absent")

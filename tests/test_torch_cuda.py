@@ -1,0 +1,46 @@
+"""Tests that need an NVIDIA card: each CUDA kernel against its plain
+version on the card.  They skip where CUDA is absent.  This file imports no
+JAX, so it runs on a machine that has only the port's requirements:
+
+    PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
+"""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro_torch.kernels.spray_select import spray_select, spray_select_plain  # noqa: E402
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card: a CUDA kernel has no CPU mode")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("R,B,n", [(1, 131072, 16), (4096, 32, 16), (3, 1001, 128), (2, 5, 1)])
+def test_spray_select_kernel_matches_plain(cuda, R, B, n):
+    rng = np.random.default_rng(R * B + n)
+    for method in range(4):
+        for ell in (8, 10, 16):
+            b = np.stack([np.bincount(rng.integers(0, n, 1 << ell), minlength=n)
+                          for _ in range(R)])
+            c = torch.as_tensor(np.cumsum(b, 1).astype(np.int32), device=cuda)
+            cnt = torch.as_tensor(rng.integers(0, 2**32, (R, B)), device=cuda)
+            seeds = torch.as_tensor(np.stack([rng.integers(0, 1 << ell, R),
+                                              rng.integers(0, 1 << (ell - 1), R) * 2 + 1], 1),
+                                    device=cuda)
+            before = spray_select.launches
+            got = spray_select(cnt, c, seeds, ell=ell, method=method)
+            assert spray_select.launches == before + 1
+            assert torch.equal(got, spray_select_plain(cnt, c, seeds, ell=ell, method=method))
+
+
+@pytest.mark.cuda
+def test_spray_select_rejects_mixed_devices(cuda):
+    cnt = torch.zeros((1, 4), dtype=torch.int64, device=cuda)
+    with pytest.raises(ValueError):
+        spray_select(cnt, torch.tensor([[4]], dtype=torch.int32),
+                     torch.tensor([[0, 1]], device=cuda), ell=2, method=1)

@@ -1,0 +1,143 @@
+"""Package rules of the port: no JAX and nothing of `repro` in it, entry
+points that run on the card unless asked otherwise, and a chip smoke test
+whose golden case table is the generator's."""
+import ast
+import importlib.util
+import pathlib
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+
+
+def _load(name, path):
+    spec = importlib.util.spec_from_file_location(name, path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_port_imports_no_jax_and_nothing_of_repro(path):
+    tree = ast.parse(path.read_text())
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            names = [node.module or ""]
+        else:
+            continue
+        for name in names:
+            top = name.split(".")[0]
+            assert top not in ("jax", "jaxlib", "repro"), f"{path.name} imports {name}"
+
+
+def test_chip_smoke_case_table_matches_generator():
+    gen = _load("gen_golden_transport", ROOT / "tests" / "golden" / "gen_golden_transport.py")
+    smoke = _load("chip_smoke", ROOT / "chip_smoke.py")
+    want = []
+    for file, cases in (("transport_seed.npz", gen.golden_cases()),
+                        ("transport_policies.npz", gen.golden_policy_cases())):
+        want += [(file, name, "bundle", params, cfg, npk, seed, hz)
+                 for name, params, cfg, npk, seed, hz in cases]
+    topo, sched, cfg, npk, seed, hz = gen.golden_flows_case()
+    want.append(("transport_seed.npz", "FLOWS/WAM", "leaf_spine", topo, cfg, npk, seed, hz))
+    want += [("transport_policies.npz", name, "leaf_spine", topo, cfg, npk, seed, hz)
+             for name, topo, sched, cfg, npk, seed, hz in gen.golden_policy_flows_cases()]
+    got = smoke.GOLDEN_CASES
+    assert sorted((w[0], w[1]) for w in want) == sorted((g["file"], g["name"]) for g in got)
+    by_name = {(g["file"], g["name"]): g for g in got}
+    g = smoke.GOLDEN_TOPOLOGY
+    ref_topo = gen.leaf_spine(g["n_leaves"], g["n_spines"], list(g["pairs"]),
+                              uplink_capacity=g["uplink_capacity"])
+    for file, name, kind, params, cfg, npk, seed, hz in want:
+        case = by_name[(file, name)]
+        assert (case["fabric"], case["n_packets"], case["seed"], case["horizon"]) == (
+            kind, npk, seed, hz), name
+        port_cfg = smoke.golden_config(case["cfg"])
+        for field in ("coded", "code_overhead", "rate", "ell", "ctrl_interval", "seed", "cwnd"):
+            assert getattr(port_cfg, field) == getattr(cfg, field), (name, field)
+        assert int(port_cfg.policy) == int(cfg.policy) and int(port_cfg.method) == int(cfg.method)
+        if kind == "bundle":
+            port = smoke.golden_fabric(case["n"], "cpu")
+            for field in ("capacity", "latency", "queue_limit", "ecn_threshold",
+                          "degrade_p", "recover_p", "degrade_factor"):
+                w = np.asarray(getattr(params, field))
+                assert np.array_equal(w, getattr(port, field).numpy()), (name, field)
+                assert w.dtype == getattr(port, field).numpy().dtype, (name, field)
+            assert (port.fb_delay, port.ring_len) == (params.fb_delay, params.ring_len)
+        else:
+            for field in ("route", "capacity", "queue_limit", "latency", "degrade_p"):
+                assert np.array_equal(np.asarray(getattr(params, field)),
+                                      np.asarray(getattr(ref_topo, field))), (name, field)
+
+
+def test_entry_points_default_to_the_card():
+    """Called without ``device=``, an entry point runs on the card: where
+    there is none it raises instead of running on the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is usable here")
+    from repro_torch import random as prng
+    from repro_torch.net import sender, topology, transport
+    smoke = _load("chip_smoke", ROOT / "chip_smoke.py")
+    cfg = transport.TransportConfig(policy=transport.Policy.WAM, rate=4)
+    key = prng.PRNGKey(0)
+    topo = topology.leaf_spine(2, 2, [(0, 1)])
+    sched = topology.null_schedule(topo.links)
+    calls = [
+        lambda: transport.simulate_message(smoke.golden_fabric(4, "cpu"), cfg, 8, key, 16),
+        lambda: transport.simulate_flows(topo, sched, cfg, 8, key, 16),
+        lambda: sender.run_message(smoke.golden_fabric(4, "cpu"), cfg.spec(), cfg.params(),
+                                   8, key, 16),
+        lambda: sender.run_flows(topo, sched, cfg.spec(), cfg.params(), 8, key, 16),
+        lambda: sender.run_flows_sized(topo, sched, cfg.spec(), cfg.params(), 8, key, 16),
+    ]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+
+
+def test_telemetry_not_ported_raises():
+    from repro_torch import random as prng
+    from repro_torch.net import sender, topology
+    topo = topology.leaf_spine(2, 2, [(0, 1)])
+    spec = sender.SenderSpec(rate_cap=4, telemetry=object())
+    with pytest.raises(NotImplementedError):
+        sender.run_flows(topo, topology.null_schedule(topo.links), spec,
+                         sender.sender_params(4, rate=4), 8, prng.PRNGKey(0), 16,
+                         device="cpu")
+
+
+def test_convert_carries_reference_parameters():
+    """`repro_torch.convert` turns the reference's parameters, handed over
+    as numpy arrays, into the port's objects."""
+    import jax
+    from repro.net import sender as jsender
+    from repro.net import transport as jtr
+    from repro_torch import convert
+    from repro_torch.net import transport as tt
+
+    cfg = jtr.TransportConfig(policy=jtr.Policy.CC_COUPLED, coded=False, rate=12,
+                              seed=(5, 7), cwnd=64.0, ctrl_interval=3)
+    jp = jsender.sender_params(cfg.policy, rate=cfg.rate, cwnd=cfg.cwnd,
+                               code_overhead=cfg.code_overhead,
+                               ctrl_interval=cfg.ctrl_interval, seed=cfg.seed)
+    arrays = {k: np.asarray(getattr(jp, k)) for k in
+              ("policy", "rate", "cwnd", "code_overhead", "ctrl_interval", "sa", "sb")}
+    port = tt.TransportConfig(policy=tt.Policy.CC_COUPLED, coded=False, rate=12,
+                              seed=(5, 7), cwnd=64.0, ctrl_interval=3).params()
+    got = convert.sender_params(arrays)
+    for field in arrays:
+        want = getattr(port, field)
+        if isinstance(want, float):  # the reference holds float32 scalars
+            assert np.float32(getattr(got, field)) == np.float32(want), field
+        else:
+            assert getattr(got, field) == want, field
+    key = jax.random.PRNGKey(42)
+    assert convert.prng_key(np.asarray(key)).tolist() == np.asarray(key).tolist()
+    with pytest.raises(ValueError):
+        convert.prng_key(np.zeros(3, np.uint32))
