@@ -8,7 +8,9 @@ Phases (the first that fails ends the run with a nonzero exit):
    from the sources in the checkout (one nvcc per source, in parallel).
 2. Hold each kernel against its plain PyTorch version on the card: the
    `spray_select` kernel over every spray method x ell x path count, at
-   131,072 decisions, plus ragged batches and the main path's row shape.
+   131,072 decisions, plus ragged batches and the main path's row shape;
+   the `lt_encode` kernel over the reference tests' shapes, ragged shapes
+   with negative and out-of-range indices, and the full-width message.
    Results must be equal; each kernel's time is printed beside the plain
    version's.
 3. Run every case of `tests/golden/transport_seed.npz` and
@@ -18,9 +20,21 @@ Phases (the first that fails ends the run with a nonzero exit):
    fabric for WAM and ECMP; every flow must finish.  The WAM run is
    repeated with the spray held to its plain version: outputs must be
    identical.
+5. The coded path: one 32 MiB message (K = 8,192 source symbols of 4 KiB)
+   encoded into R = 13,139 symbols on the card; decoding all of them and a
+   seeded 90% subset, a K = 256 round trip and two `decode_overhead_curve`
+   runs must equal the same calls on the CPU.  (The `lt_encode` kernel is
+   held to its plain version in phase 2, at this shape among others.)
+6. The serving router: 64 replicas of unequal weight, 200 windows of
+   4,096 requests with one replica 8x slower in windows 50-119; every
+   replica id, sequence number, severity weight and share must equal the
+   router's CPU run.
 
-The last lines are the card's name and power limit, one JSON object with a
-row per kernel, and ``{"ok": true, "device": {...}}``.  Without a CUDA
+Each path of phases 4-6 runs with the kernels' launch counts set to 0
+just before it and read just after; a kernel row's ``launches`` is its
+total over those paths.  The last lines are the card's name and power
+limit, one JSON object with a row per kernel, and
+``{"ok": true, "device": {...}}``.  Without a CUDA
 device the script exits nonzero and prints no result.
 """
 from __future__ import annotations
@@ -42,10 +56,12 @@ import torch  # noqa: E402
 from repro_torch import random as prng  # noqa: E402
 from repro_torch.core.spray import SprayMethod, spray_key  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
+from repro_torch.kernels.lt_encode import as_int32_bits, lt_encode, lt_encode_plain  # noqa: E402
 from repro_torch.kernels.spray_select import (  # noqa: E402
     spray_select,
     spray_select_plain,
 )
+from repro_torch.net import fountain  # noqa: E402
 from repro_torch.net.fabric import FabricParams  # noqa: E402
 from repro_torch.net.policies import Policy  # noqa: E402
 from repro_torch.net.topology import leaf_spine, null_schedule  # noqa: E402
@@ -54,6 +70,7 @@ from repro_torch.net.transport import (  # noqa: E402
     simulate_flows,
     simulate_message,
 )
+from repro_torch.serve_router import Router  # noqa: E402
 
 GOLDEN_DIR = os.path.join(ROOT, "tests", "golden")
 GOLDEN_FIELDS = ("cct", "sent_total", "dropped_total", "final_b", "received")
@@ -93,6 +110,12 @@ GOLDEN_CASES = (
 # the full-width cell
 WIDE_LEAVES, WIDE_SPINES, WIDE_FLOWS = 64, 16, 4096
 WIDE_RATE, WIDE_PACKETS, WIDE_HORIZON = 32, 256, 2048
+# the coded message: K source symbols of P uint32 words (4 KiB, an MTU's
+# payload) make 32 MiB, about one DDP gradient bucket (bucket_cap_mb = 25)
+CODED_K, CODED_P, CODED_DMAX = 8192, 1024, 32
+CODED_R = int(CODED_K * 1.6) + 32
+# the router run
+ROUTER_REPLICAS, ROUTER_WINDOWS, ROUTER_BATCH, ROUTER_SLOW = 64, 200, 4096, 7
 
 
 def golden_fabric(n: int, device) -> FabricParams:
@@ -234,6 +257,86 @@ def phase_kernels(dev):
                 library_ms=library_ms)
 
 
+def coded_message():
+    """The full-width message: payload and encoding drawn from seed 0."""
+    rng = np.random.default_rng(0)
+    payload = rng.integers(0, 2**32, (CODED_K, CODED_P), dtype=np.uint32)
+    neigh, valid = fountain.sample_encoding(CODED_K, CODED_R, rng, dmax=CODED_DMAX)
+    return payload, neigh, valid
+
+
+def lt_inputs(rng, K, P, R, dmax, lo, hi, dev):
+    payload = torch.as_tensor(rng.integers(-2**31, 2**31, (K, P)).astype(np.int32), device=dev)
+    neigh = torch.as_tensor(rng.integers(lo, hi, (R, dmax)).astype(np.int32), device=dev)
+    valid = torch.as_tensor(rng.random((R, dmax)) < 0.7, device=dev)
+    return payload, neigh, valid
+
+
+def phase_lt_encode(dev, message):
+    """lt_encode against its plain version; returns the kernel's row."""
+    rng = np.random.default_rng(1)
+    cases = []
+    for K, P, R, dmax in ((64, 512, 16, 8), (128, 1024, 32, 16), (16, 512, 8, 4)):
+        cases.append((f"{K}x{P}->{R} dmax {dmax}", lt_inputs(rng, K, P, R, dmax, 0, K, dev)))
+    copy = torch.as_tensor(rng.integers(-2**31, 2**31, (8, 512)).astype(np.int32), device=dev)
+    cases.append(("degree-one copy", (copy, torch.arange(8, device=dev).reshape(8, 1),
+                                      torch.ones((8, 1), dtype=torch.bool, device=dev))))
+    for K, P, R, dmax in ((37, 1001, 13, 5), (5, 3, 7, 40), (1, 1, 1, 1), (300, 6, 11, 300),
+                          (1000, 1023, 257, 33), (2048, 1024, 3001, 32)):
+        inputs = lt_inputs(rng, K, P, R, dmax, -2 * K - 3, 2 * K + 3, dev)
+        cases.append((f"ragged {K}x{P}->{R} dmax {dmax}", inputs))
+        cases.append((f"ragged {K}x{P}->{R} dmax {dmax}, int64 idx",
+                      (inputs[0], inputs[1].to(torch.int64) * (2**33 + 1), inputs[2])))
+    flat = torch.as_tensor(rng.integers(-2**31, 2**31, 33 * 512 + 1).astype(np.int32), device=dev)
+    _, nb, ok = lt_inputs(rng, 33, 512, 19, 6, 0, 33, dev)
+    cases.append(("unaligned payload", (flat[1:].view(33, 512), nb, ok)))
+    payload_np, neigh_np, valid_np = message
+    payload = as_int32_bits(payload_np).to(dev)
+    neigh = torch.as_tensor(neigh_np, device=dev)
+    valid = torch.as_tensor(valid_np, device=dev)
+    cases.append((f"full width {CODED_K}x{CODED_P}->{CODED_R}", (payload, neigh, valid)))
+    for name, args in cases:
+        got = lt_encode(*args)
+        want = lt_encode_plain(*args)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            raise AssertionError(f"lt_encode differs from its plain version: {name}")
+        if name == "degree-one copy" and not torch.equal(got, copy):
+            raise AssertionError("lt_encode: a degree-one encoding is not a copy")
+    print(f"[kernels] lt_encode equals its plain version in {len(cases)} cases")
+
+    err = (got.to(torch.int64) - want.to(torch.int64)).abs().max()
+    eager = {"kernel": time_ms(lambda: lt_encode(payload, neigh, valid)),
+             "plain": time_ms(lambda: lt_encode_plain(payload, neigh, valid), iters=10,
+                              warmup=2)}
+    graphed = {"kernel": device_ms(lambda: lt_encode(payload, neigh, valid)),
+               "plain": device_ms(lambda: lt_encode_plain(payload, neigh, valid), iters=10)}
+    print("[kernels] lt_encode eager ms per call: "
+          + ", ".join(f"{k} {v:.6f}" for k, v in eager.items()))
+    print("[kernels] lt_encode graph-replayed ms per call: "
+          + ", ".join(f"{k} {v:.6f}" for k, v in graphed.items()))
+    # the bound: each referenced payload row, the index and mask arrays read
+    # once, the output written once; one XOR per gathered word
+    degree_sum = int(valid_np.sum())
+    rows_used = int(np.unique(neigh_np[valid_np]).size)
+    nbytes = 4 * rows_used * CODED_P + 4 * CODED_R * CODED_P + 5 * neigh_np.size
+    ops = degree_sum * CODED_P
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / CUDA_CORE_OPS_PER_S * 1e3
+    print(f"[kernels] lt_encode [{CODED_K}x{CODED_P} -> {CODED_R}, dmax {CODED_DMAX}]: degree sum "
+          f"{degree_sum} (mean {degree_sum / CODED_R:.4f}), {rows_used} payload rows used; "
+          f"{nbytes} B -> {t_bytes:.6f} ms, {ops} XORs -> {t_ops:.6f} ms; "
+          f"gathered rows {4 * degree_sum * CODED_P} B")
+    bound_by = "bytes" if t_bytes >= t_ops else "operations"
+    print(f"[kernels] lt_encode: kernel {graphed['kernel']:.6f} ms, plain {graphed['plain']:.6f} ms, "
+          f"bound {max(t_bytes, t_ops):.6f} ms ({bound_by}); library: none (no single PyTorch "
+          f"call computes a gather-XOR reduction)")
+    return dict(name="lt_encode", route="cuda",
+                source="src/repro_torch/kernels/csrc/lt_encode.cu",
+                replaces="src/repro/kernels/lt_encode.py:52", launches=0,
+                max_abs_err=float(err), ms=graphed["kernel"], plain_ms=graphed["plain"],
+                bound_ms=max(t_bytes, t_ops), bound_by=bound_by, library_ms=None)
+
+
 def phase_goldens(dev):
     files = {f: np.load(os.path.join(GOLDEN_DIR, f)) for f in
              ("transport_seed.npz", "transport_policies.npz")}
@@ -301,6 +404,104 @@ def phase_wide(dev, kernel_rows):
     print("[wide] WAM with the plain spray on the card: identical outputs")
 
 
+def _same_decode(a, b, what):
+    if (a is None) != (b is None) or (a is not None and not np.array_equal(a, b)):
+        raise AssertionError(f"{what}: the card's decode differs from the CPU's")
+    return "None (not decodable)" if a is None else "decoded"
+
+
+def phase_coded(dev, rows, message):
+    payload, neigh, valid = message
+    K, R = CODED_K, CODED_R
+    lt_encode.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    enc_dev = fountain.encode(payload, neigh, valid, device=dev)
+    torch.cuda.synchronize()
+    t_enc = time.perf_counter() - t0
+    enc = fountain.as_uint32(enc_dev)
+    t0 = time.perf_counter()
+    enc_cpu = fountain.as_uint32(fountain.encode(payload, neigh, valid, device="cpu"))
+    t_cpu = time.perf_counter() - t0
+    if not np.array_equal(enc, enc_cpu):
+        raise AssertionError("coded: the card's encoding differs from the CPU's")
+    print(f"[coded] encoded {K} x {CODED_P * 4} B -> {R} symbols: {1e3 * t_enc:.3f} ms on the "
+          f"card (host copy in, kernel), {1e3 * t_cpu:.3f} ms on the CPU; equal")
+    keep = np.sort(np.random.default_rng(1).permutation(R)[: int(0.9 * R)])
+    for name, idx in (("all", np.arange(R)), ("90%", keep)):
+        t0 = time.perf_counter()
+        got = fountain.peel_decode(enc[idx], neigh[idx], valid[idx], K)
+        t_dec = time.perf_counter() - t0
+        want = fountain.peel_decode(enc_cpu[idx], neigh[idx], valid[idx], K)
+        state = _same_decode(got, want, f"decode of {name} {idx.size} symbols")
+        if got is not None and not np.array_equal(got, payload):
+            raise AssertionError(f"decode of {name} symbols gave a wrong payload")
+        print(f"[coded] peel decode of {name} ({idx.size}) symbols: {state}, "
+              f"{1e3 * t_dec:.1f} ms on the host; equal to the CPU run")
+    rng = np.random.default_rng(0)
+    small = rng.integers(0, 2**32, (256, CODED_P), dtype=np.uint32)
+    nb, ok = fountain.sample_encoding(256, 441, rng)
+    dec = fountain.peel_decode(fountain.as_uint32(fountain.encode(small, nb, ok, device=dev)),
+                               nb, ok, 256)
+    if dec is None or not np.array_equal(dec, small):
+        raise AssertionError("coded: the K = 256 round trip did not return the payload")
+    print("[coded] round trip K = 256, P = 1024, R = 441: decoded to the payload")
+    for k, trials in ((256, 8), (1024, 3)):
+        got = fountain.decode_overhead_curve(k, trials, np.random.default_rng(3), device=dev)
+        want = fountain.decode_overhead_curve(k, trials, np.random.default_rng(3), device="cpu")
+        if not np.array_equal(got, want):
+            raise AssertionError(f"decode_overhead_curve({k}) differs: {got} != {want}")
+        r_full = int(k * 1.6) + 32
+        print(f"[coded] decode_overhead_curve({k}, {trials}): {got.tolist()}, equal to the CPU "
+              f"run; {int((got == r_full).sum())} of {trials} censored at R = {r_full}")
+    launches = lt_encode.launches
+    if launches <= 0:
+        raise AssertionError("the coded path never launched lt_encode")
+    rows["lt_encode"]["launches"] = launches
+    print(f"[coded] lt_encode launches on the coded path: {launches}")
+
+
+def run_router(device):
+    """200 windows of simulate_window + report; everything they return."""
+    weights = 0.5 + 1.5 * np.random.default_rng(0).random(ROUTER_REPLICAS)
+    router = Router(weights, ell=10, device=device)
+    rng = np.random.default_rng(0)
+    out = []
+    for window in range(ROUTER_WINDOWS):
+        service = np.full(ROUTER_REPLICAS, 5.0)
+        if 50 <= window < 120:
+            service[ROUTER_SLOW] *= 8.0
+        rep = router.simulate_window(ROUTER_BATCH, service, rng)
+        w = router.report(rep)
+        out.append((router.last_ids, router.last_seqs, w, router.shares))
+    return out
+
+
+def phase_router(dev, rows):
+    spray_select.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    card = run_router(dev)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = spray_select.launches
+    cpu = run_router("cpu")
+    for window, (a, b) in enumerate(zip(card, cpu)):
+        for field, x, y in zip(("ids", "sequence numbers", "weights", "shares"), a, b):
+            if x.dtype != y.dtype or not np.array_equal(x, y):
+                raise AssertionError(f"router window {window}: {field} differ from the CPU run")
+    if launches < ROUTER_WINDOWS:
+        raise AssertionError(f"the router launched spray_select {launches} times")
+    rows["spray_select"]["launches"] += launches
+    slow = np.array([c[3][ROUTER_SLOW] for c in card])
+    spans = ((0, 50), (50, 120), (120, ROUTER_WINDOWS))
+    print(f"[router] {ROUTER_REPLICAS} replicas x {ROUTER_WINDOWS} windows of {ROUTER_BATCH}: "
+          f"{1e3 * secs / ROUTER_WINDOWS:.4f} ms per window on the card, spray_select launches "
+          f"{launches}; slow replica's mean share in windows "
+          + ", ".join(f"[{a}, {b}) {slow[a:b].mean():.6f}" for a, b in spans)
+          + "; ids, sequence numbers, weights and shares equal to the CPU run")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -313,9 +514,12 @@ def main() -> int:
     for name, log in logs.items():
         print(f"[build] {name}: {log.strip()}")
     print(f"[build] {len(logs)} kernel(s) built in {time.time() - t0:.1f} s")
-    rows = {"spray_select": phase_kernels(dev)}
+    message = coded_message()
+    rows = {"spray_select": phase_kernels(dev), "lt_encode": phase_lt_encode(dev, message)}
     phase_goldens(dev)
     phase_wide(dev, rows)
+    phase_coded(dev, rows, message)
+    phase_router(dev, rows)
     for row in rows.values():
         if not all(math.isfinite(row[k]) for k in ("ms", "plain_ms", "bound_ms")):
             raise AssertionError(f"non-finite timing in {row}")

@@ -1,0 +1,93 @@
+"""Where the time goes in the coded and router cells, on one NVIDIA card.
+
+    python3 scripts/profile_cells.py --cell coded|router [--steps N]
+
+Runs one cell of `chip_smoke.py` under `torch.profiler` and prints the
+wall time per step, the card's busy and idle shares, the device
+operations per step, and those that take the most device time.  A step
+is one full-width message encoded on the card from host memory and
+peel-decoded on the host (`coded`, default 2), or one router window of
+`simulate_window` + `report` (`router`, default 50).  The wide cell has
+its own tool, `tools/torch_profile_wide.py`.
+"""
+from __future__ import annotations
+
+import argparse
+import os
+import sys
+import time
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, ROOT)
+
+import chip_smoke as cs  # noqa: E402
+import numpy as np  # noqa: E402
+import torch  # noqa: E402
+from torch.profiler import ProfilerActivity, profile  # noqa: E402
+
+UNIT = {"coded": "message", "router": "window"}
+
+
+def _device_us(evt) -> float:
+    for name in ("self_device_time_total", "self_cuda_time_total"):
+        v = getattr(evt, name, None)
+        if v is not None:
+            return float(v)
+    return 0.0
+
+
+def _step(cell: str, dev):
+    """One step of the cell, built once."""
+    if cell == "coded":
+        payload, neigh, valid = cs.coded_message()
+
+        def step():
+            enc = cs.fountain.encode(payload, neigh, valid, device=dev)
+            cs.fountain.peel_decode(cs.fountain.as_uint32(enc), neigh, valid, cs.CODED_K)
+        return step
+    weights = 0.5 + 1.5 * np.random.default_rng(0).random(cs.ROUTER_REPLICAS)
+    router = cs.Router(weights, ell=10, device=dev)
+    service = np.full(cs.ROUTER_REPLICAS, 5.0)
+    return lambda: router.report(router.simulate_window(cs.ROUTER_BATCH, service))
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--cell", choices=tuple(UNIT), required=True)
+    ap.add_argument("--steps", type=int, default=None,
+                    help="messages or windows (default 2 or 50)")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("profile_cells: no CUDA device", file=sys.stderr)
+        return 2
+    steps = args.steps or {"coded": 2, "router": 50}[args.cell]
+    unit = UNIT[args.cell]
+    dev = torch.device("cuda")
+    print(cs.card_line())
+    step = _step(args.cell, dev)
+    step()  # warm up: kernel build, allocator, CUDA context
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            step()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    ops = [e for e in prof.key_averages()
+           if str(getattr(e, "device_type", "")).endswith("CUDA") and _device_us(e) > 0]
+    busy_us = sum(_device_us(e) for e in ops)
+    print(f"cell {args.cell}: {steps} {unit}s, wall {wall_us / steps:.1f} us/{unit}")
+    if busy_us == 0:
+        print("device time: not measured (the profiler recorded no device time)")
+        return 0
+    print(f"device busy {busy_us / steps:.1f} us/{unit}, busy share {busy_us / wall_us:.4f}, "
+          f"idle share {1 - busy_us / wall_us:.4f}, device operations "
+          f"{sum(e.count for e in ops) / steps:.1f}/{unit}")
+    for e in sorted(ops, key=_device_us, reverse=True)[:12]:
+        print(f"  {_device_us(e) / steps:9.2f} us/{unit}  {e.count / steps:6.1f}/{unit}  "
+              f"{e.key[:90]}")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

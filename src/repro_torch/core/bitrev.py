@@ -4,7 +4,7 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["bit_reverse32", "theta"]
+__all__ = ["bit_reverse32", "theta", "theta_inverse"]
 
 _M1 = 0x55555555
 _M2 = 0x33333333
@@ -31,3 +31,8 @@ def theta(j: torch.Tensor, ell: int) -> torch.Tensor:
         raise ValueError(f"ell must be in [1, 32], got {ell}")
     mask = (1 << ell) - 1
     return bit_reverse32(j & mask) >> (32 - ell)
+
+
+def theta_inverse(k: torch.Tensor, ell: int) -> torch.Tensor:
+    """theta is an involution on ell-bit integers: theta(theta(k)) == k."""
+    return theta(k, ell)

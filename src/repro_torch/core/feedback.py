@@ -13,9 +13,11 @@ import torch
 
 from repro_torch.core.profile import PathProfile, make_profile
 from repro_torch.core.updates import update_embodiment3, update_embodiment4
+from repro_torch.numerics import fold_sum
 
-__all__ = ["PathStats", "ControllerState", "severity_weights", "make_controller",
-           "whack_down", "restore_path", "controller_step"]
+__all__ = ["PathStats", "ControllerState", "severity_weights", "alpha_for_severity",
+           "weighted_badness", "make_controller", "whack_down", "restore_path",
+           "controller_step"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -53,13 +55,24 @@ def severity_weights(stats: PathStats) -> torch.Tensor:
     return (stats.ecn_rate + 4.0 * stats.loss_rate) + torch.clamp(excess, 0.0, 4.0) / 4.0
 
 
+def alpha_for_severity(w: torch.Tensor, cap: float = 0.5) -> torch.Tensor:
+    """The §6 adjustment factor: clip(w, 0, 1) * cap."""
+    return torch.clamp(w, 0.0, 1.0) * cap
+
+
+def weighted_badness(b: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """The §6 objective sum_i w(i) * b(i), as a left fold of the products
+    (the reference's eager sum; under `jit` XLA fuses it into FMAs)."""
+    return fold_sum(w * b.to(w.dtype))
+
+
 def whack_down(state: ControllerState, w: torch.Tensor, *,
                degraded_threshold: float = 0.05, proportional: bool = False,
                min_floor: int = 0) -> ControllerState:
     """Remove alpha(w) * b(i) balls from every degraded path (never the
     least-bad one) and redistribute them to the healthy set."""
     b = state.profile.b
-    alpha = torch.clamp(w, 0.0, 1.0) * 0.5
+    alpha = alpha_for_severity(w)
     degraded = w > _f32(degraded_threshold, w)
     best = torch.argmin(w, dim=-1, keepdim=True)
     degraded = degraded.scatter(-1, best, False)

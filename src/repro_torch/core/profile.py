@@ -10,8 +10,8 @@ import dataclasses
 import numpy as np
 import torch
 
-__all__ = ["PathProfile", "make_profile", "cumulative", "uniform_profile",
-           "quantize_counts", "quantize_profile"]
+__all__ = ["PathProfile", "make_profile", "cumulative", "from_cumulative",
+           "uniform_profile", "quantize_counts", "quantize_profile", "validate_profile"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -28,9 +28,19 @@ class PathProfile:
     def m(self) -> int:
         return 1 << self.ell
 
+    @property
+    def fractions(self) -> np.ndarray:
+        return self.b.cpu().numpy().astype(np.float64) / self.m
+
 
 def cumulative(b: torch.Tensor) -> torch.Tensor:
     return torch.cumsum(b, dim=-1, dtype=torch.int32)
+
+
+def from_cumulative(c: torch.Tensor) -> torch.Tensor:
+    """b(i) = c(i) - c(i-1), with c(-1) = 0."""
+    c = c.to(torch.int32)
+    return torch.diff(c, dim=-1, prepend=torch.zeros_like(c[..., :1]))
 
 
 def make_profile(b: torch.Tensor, ell: int) -> PathProfile:
@@ -68,3 +78,17 @@ def quantize_counts(p, ell: int) -> np.ndarray:
 def quantize_profile(p, ell: int, device=None) -> PathProfile:
     return make_profile(torch.as_tensor(quantize_counts(p, ell), device=device),
                         ell)
+
+
+def validate_profile(profile: PathProfile) -> None:
+    """Host-side invariant check of a 1-D profile (raises on violation)."""
+    b = profile.b.cpu().numpy()
+    c = profile.c.cpu().numpy()
+    if b.ndim != 1:
+        raise ValueError("b must be 1-D")
+    if np.any(b < 0):
+        raise ValueError(f"negative bin counts: {b}")
+    if int(b.sum()) != profile.m:
+        raise ValueError(f"sum(b)={int(b.sum())} != m={profile.m}")
+    if not np.array_equal(np.cumsum(b), c):
+        raise ValueError("cumulative array out of sync with bins")

@@ -24,6 +24,7 @@ from repro_torch.core.feedback import (ControllerState, PathStats, controller_st
                                        make_controller)
 from repro_torch.core.profile import make_profile, uniform_profile
 from repro_torch.core.spray import SprayMethod, SprayState
+from repro_torch.device import resolve_device
 from repro_torch.net.fabric import FabricParams, fabric_tick, init_fabric
 from repro_torch.net.policies import (ALL_POLICIES, BASELINE_POLICIES, Policy,
                                       assign_lanes, blocks_for, profile_adaptive,
@@ -94,14 +95,6 @@ class SimResult:
     link_busy: torch.Tensor      # float32[L] or [0]
     ticks_run: int = 0           # ticks executed (fewer than the horizon
                                  # when early exit skipped settled ones)
-
-
-def resolve_device(device) -> torch.device:
-    """The device an entry point runs on; a CUDA device must exist."""
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("no CUDA device: pass device='cpu' to run on the CPU")
-    return device
 
 
 def to_device(obj, device):

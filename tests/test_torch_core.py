@@ -134,3 +134,146 @@ def test_restore_path_small_m_fallback():
         feedback.make_controller(profile.make_profile(torch.as_tensor(b)[None], 4)),
         torch.tensor([3]))
     assert np.array_equal(np.asarray(jst.profile.b), tst.profile.b[0].numpy())
+
+
+# --- one source's spray state: make_spray_state, spray_paths/_batch, reseed
+
+
+@pytest.mark.parametrize("sa,sb", [(-1, 1), (1024, 1), (0, 0), (0, 2), (0, 1024), (5, 1025)])
+def test_make_spray_state_rejects_what_the_reference_rejects(sa, sb):
+    jp, tp = jprof.uniform_profile(4, 10), profile.uniform_profile(4, 10)
+    with pytest.raises(ValueError) as want:
+        jspray.make_spray_state(jp, sa=sa, sb=sb)
+    with pytest.raises(ValueError) as got:
+        spray.make_spray_state(tp, sa=sa, sb=sb)
+    assert str(got.value) == str(want.value)
+
+
+_jbatch = jax.jit(jspray.spray_batch, static_argnums=2)
+
+
+@pytest.mark.parametrize("method", list(spray.SprayMethod))
+@pytest.mark.parametrize("n", [1, 5, 16, 128])
+def test_spray_batch_paths_and_reseed_match(method, n):
+    """Paths, per-path sequence numbers, counters (wrapping past 2**32) and
+    reseeded seeds equal the reference's over several batches."""
+    rng = np.random.default_rng(n * 4 + int(method))
+    w = rng.random(n) + 0.01
+    jp, tp = jprof.quantize_profile(w, 10), profile.quantize_profile(w, 10)
+    sa, sb = int(rng.integers(0, 1024)), int(rng.integers(0, 512)) * 2 + 1
+    jst = jspray.make_spray_state(jp, method=method, sa=sa, sb=sb, j0=2**32 - 700)
+    tst = spray.make_spray_state(tp, method=method, sa=sa, sb=sb, j0=2**32 - 700)
+    for count in (1, 17, 1000, 300):
+        assert np.array_equal(np.asarray(jspray.spray_paths(jst, jp, count)),
+                              spray.spray_paths(tst, tp, count).numpy())
+        jpaths, jseqs, jst = _jbatch(jst, jp, count)
+        tpaths, tseqs, tst = spray.spray_batch(tst, tp, count)
+        assert np.array_equal(np.asarray(jpaths), tpaths.numpy())
+        assert tseqs.dtype == torch.int32 and np.array_equal(np.asarray(jseqs), tseqs.numpy())
+        assert int(jst.j) == int(tst.j)
+        assert np.array_equal(np.asarray(jst.path_seq), tst.path_seq.numpy())
+        s1, s2 = (int(x) for x in rng.integers(0, 2**32, 2))
+        jst, tst = jspray.reseed(jst, s1, s2), spray.reseed(tst, s1, s2)
+        assert (int(jst.sa), int(jst.sb)) == (int(tst.sa), int(tst.sb))
+
+
+# --- deviation (paper §9) and time-varying profiles (§8) ------------------
+
+from repro.core import deviation as jdev  # noqa: E402
+from repro.core import timevarying as jtv  # noqa: E402
+from repro_torch.core import deviation, timevarying  # noqa: E402
+
+DEV_ELL = 8
+
+
+@pytest.mark.parametrize("method", list(spray.SprayMethod))
+def test_deviation_every_start(method):
+    """m-scaled max/min discrepancies for every start j in [0, m), and the
+    per-path deviations at every start, equal the reference's at ell = 8.
+    No bound is asserted: COMBINED breaks its stated 2*ell."""
+    rng = np.random.default_rng(50 + int(method))
+    m = 1 << DEV_ELL
+    for _ in range(3):
+        sa, sb = int(rng.integers(0, m)), int(rng.integers(0, m // 2)) * 2 + 1
+        start = int(rng.integers(0, 3 * m))
+        assert np.array_equal(deviation.spray_keys_np(DEV_ELL, method, sa, sb, start, 600),
+                              jdev.spray_keys_np(DEV_ELL, method, sa, sb, start, 600))
+        lo = int(rng.integers(0, m - 1))
+        hi = int(rng.integers(lo + 1, m + 1))
+        for got, want in zip(deviation.interval_discrepancy_scaled(DEV_ELL, method, sa, sb, lo, hi),
+                             jdev.interval_discrepancy_scaled(DEV_ELL, method, sa, sb, lo, hi)):
+            assert got.dtype == want.dtype and np.array_equal(got, want)
+        assert (deviation.interval_deviation(DEV_ELL, method, sa, sb, lo, hi)
+                == jdev.interval_deviation(DEV_ELL, method, sa, sb, lo, hi))
+        w = rng.random(int(rng.integers(2, 9))) + 0.01
+        jp, tp = jprof.quantize_profile(w, DEV_ELL), profile.quantize_profile(w, DEV_ELL)
+        assert np.array_equal(deviation.path_deviations(tp, method, sa, sb),
+                              jdev.path_deviations(jp, method, sa, sb))
+        assert deviation.max_deviation(tp, method, sa, sb) == jdev.max_deviation(jp, method, sa, sb)
+        for j in range(0, m, 37):
+            assert np.array_equal(deviation.path_deviations(tp, method, sa, sb, start=j),
+                                  jdev.path_deviations(jp, method, sa, sb, start=j))
+            assert (deviation.deviation_from_start(DEV_ELL, method, sa, sb, lo, hi, j)
+                    == jdev.deviation_from_start(DEV_ELL, method, sa, sb, lo, hi, j))
+
+
+def test_port_deviation_pins_combined_counterexample():
+    """The port's deviation module gives COMBINED's 21.03 > 2*ell at
+    [127, 256), sa=124, sb=245 (ROADMAP queue 3), as the reference does."""
+    dev = deviation.interval_deviation(DEV_ELL, 3, 124, 245, 127, 256)
+    assert dev == 5383 / 256 == jdev.interval_deviation(DEV_ELL, 3, 124, 245, 127, 256)
+    assert dev > 2 * DEV_ELL
+
+
+def test_timevarying_matches_reference():
+    rng = np.random.default_rng(8)
+    for _ in range(40):
+        specs = [(float(rng.uniform(1, 200)), float(rng.uniform(5, 200))) for _ in range(2)]
+        jp = [jtv.PathSpec(*s) for s in specs]
+        tp = [timevarying.PathSpec(*s) for s in specs]
+        mbit = float(rng.uniform(0.5, 50))
+        js, jt = jtv.optimal_two_path_schedule(mbit, jp)
+        ts, tt = timevarying.optimal_two_path_schedule(mbit, tp)
+        assert tt == jt and [(p.duration_ms, p.fractions) for p in ts] == [
+            (p.duration_ms, p.fractions) for p in js]
+        for f in ((1, 0), (0, 1), (0.3, 0.7)):
+            assert (timevarying.static_profile_completion(mbit, tp, f)
+                    == jtv.static_profile_completion(mbit, jp, f))
+            assert timevarying.max_rate_for_profile(tp, f) == jtv.max_rate_for_profile(jp, f)
+        assert timevarying.optimal_completion(mbit, tp) == jtv.optimal_completion(mbit, jp)
+        deadline = float(rng.uniform(1, 400))
+        assert (timevarying.reverse_waterfill_schedule(mbit, tp, deadline)
+                == jtv.reverse_waterfill_schedule(mbit, jp, deadline))
+    with np.errstate(all="ignore"), pytest.raises(ValueError):
+        timevarying.completion_time(10.0, tp, [timevarying.Phase(1.0, (1, 0))])
+
+
+def test_small_core_helpers_match():
+    """theta_inverse, from_cumulative, fractions, validate_profile,
+    alpha_for_severity and weighted_badness (the reference's eager sum,
+    a left fold of the products, for n <= 16)."""
+    rng = np.random.default_rng(77)
+    for n in (1, 3, 8, 16):
+        w = rng.random(n) + 0.01
+        jp, tp = jprof.quantize_profile(w, 10), profile.quantize_profile(w, 10)
+        assert np.array_equal(np.asarray(jprof.from_cumulative(jp.c)),
+                              profile.from_cumulative(tp.c).numpy())
+        assert np.array_equal(jp.fractions, tp.fractions)
+        profile.validate_profile(tp)
+        sev = (rng.random(n) * rng.choice([1e-3, 1.0, 7.3], n)).astype(np.float32)
+        assert np.array_equal(np.asarray(jfb.alpha_for_severity(jnp.asarray(sev))),
+                              feedback.alpha_for_severity(torch.as_tensor(sev)).numpy())
+        for _ in range(50):
+            sev = (rng.random(n) * rng.choice([1e-3, 1.0, 7.3], n)).astype(np.float32)
+            b = rng.integers(0, 1024, n).astype(np.int32)
+            want = np.asarray(jfb.weighted_badness(jnp.asarray(b), jnp.asarray(sev)))
+            got = feedback.weighted_badness(torch.as_tensor(b), torch.as_tensor(sev)).numpy()
+            assert got.dtype == want.dtype and got == want
+    ks = np.arange(1 << 10)
+    assert np.array_equal(np.asarray(jbitrev.theta_inverse(ks.astype(np.uint32), 10)),
+                          bitrev.theta_inverse(t64(ks), 10).numpy())
+    bad = profile.make_profile(torch.tensor([3, -1, 14]), 4)
+    with pytest.raises(ValueError, match="negative"):
+        profile.validate_profile(bad)
+    with pytest.raises(ValueError, match="sum"):
+        profile.validate_profile(profile.make_profile(torch.tensor([3, 1, 14]), 4))

@@ -44,3 +44,40 @@ def test_spray_select_rejects_mixed_devices(cuda):
     with pytest.raises(ValueError):
         spray_select(cnt, torch.tensor([[4]], dtype=torch.int32),
                      torch.tensor([[0, 1]], device=cuda), ell=2, method=1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K,P,R,dmax", [(64, 512, 16, 8), (128, 1024, 32, 16), (16, 512, 8, 4),
+                                        (37, 1001, 13, 5), (5, 3, 7, 40), (1, 1, 1, 1),
+                                        (300, 6, 11, 300), (2048, 1024, 3001, 32)])
+def test_lt_encode_kernel_matches_plain(cuda, K, P, R, dmax):
+    """Exact equality on ragged shapes, with negative and out-of-range
+    indices on valid slots; one launch per call."""
+    from repro_torch.kernels.lt_encode import lt_encode, lt_encode_plain
+
+    rng = np.random.default_rng(K + P + R + dmax)
+    payload = torch.as_tensor(rng.integers(-2**31, 2**31, (K, P)).astype(np.int32), device=cuda)
+    neigh = torch.as_tensor(rng.integers(-2 * K - 3, 2 * K + 3, (R, dmax)).astype(np.int32),
+                            device=cuda)
+    valid = torch.as_tensor(rng.random((R, dmax)) < 0.7, device=cuda)
+    before = lt_encode.launches
+    got = lt_encode(payload, neigh, valid)
+    assert lt_encode.launches == before + 1
+    assert torch.equal(got, lt_encode_plain(payload, neigh, valid))
+    assert torch.equal(lt_encode(payload, neigh.to(torch.int64), valid.to(torch.uint8)), got)
+
+
+@pytest.mark.cuda
+def test_lt_encode_kernel_unaligned_payload(cuda):
+    """A payload that starts 4 bytes past a 16-byte boundary takes the
+    kernel's word-wise path and gives the same words."""
+    from repro_torch.kernels.lt_encode import lt_encode, lt_encode_plain
+
+    rng = np.random.default_rng(5)
+    K, P, R = 33, 512, 19
+    flat = torch.as_tensor(rng.integers(-2**31, 2**31, K * P + 1).astype(np.int32), device=cuda)
+    payload = flat[1:].view(K, P)
+    assert payload.data_ptr() % 16 != 0
+    neigh = torch.as_tensor(rng.integers(0, K, (R, 6)).astype(np.int32), device=cuda)
+    valid = torch.ones((R, 6), dtype=torch.bool, device=cuda)
+    assert torch.equal(lt_encode(payload, neigh, valid), lt_encode_plain(payload, neigh, valid))

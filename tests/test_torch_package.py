@@ -11,7 +11,8 @@ import pytest
 torch = pytest.importorskip("torch")
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
-PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+PORT_FILES = (sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+              + sorted((ROOT / "scripts").glob("*.py")))
 
 
 def _load(name, path):
@@ -82,7 +83,8 @@ def test_entry_points_default_to_the_card():
     if torch.cuda.is_available():
         pytest.skip("a card is present: the default device is usable here")
     from repro_torch import random as prng
-    from repro_torch.net import sender, topology, transport
+    from repro_torch.net import fountain, sender, topology, transport
+    from repro_torch.serve_router import Router
     smoke = _load("chip_smoke", ROOT / "chip_smoke.py")
     cfg = transport.TransportConfig(policy=transport.Policy.WAM, rate=4)
     key = prng.PRNGKey(0)
@@ -95,6 +97,10 @@ def test_entry_points_default_to_the_card():
                                    8, key, 16),
         lambda: sender.run_flows(topo, sched, cfg.spec(), cfg.params(), 8, key, 16),
         lambda: sender.run_flows_sized(topo, sched, cfg.spec(), cfg.params(), 8, key, 16),
+        lambda: fountain.encode(np.zeros((4, 4), np.uint32), np.zeros((2, 1), np.int32),
+                                np.ones((2, 1), bool)),
+        lambda: fountain.decode_overhead_curve(16, 1, np.random.default_rng(0)),
+        lambda: Router([1, 1]),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="no CUDA device"):
