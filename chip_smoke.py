@@ -29,8 +29,19 @@ Phases (the first that fails ends the run with a nonzero exit):
    4,096 requests with one replica 8x slower in windows 50-119; every
    replica id, sequence number, severity weight and share must equal the
    router's CPU run.
+7. Dense serving (the model zoo's path): (a) `smoke()` of qwen3-8b and of
+   h2o-danube-3-4b on the card, held to the same run on the CPU (which
+   the CPU tests hold to the JAX model); (b) full width: qwen3-8b, all 36
+   layers, f32 weights from a seeded generator on the card, 4 prompts of
+   2,048 tokens from ``default_rng(0)``, 64 greedy tokens, then the same
+   run teacher-forced with the attention kernels' plain versions; logits
+   and tokens must agree as closely as bf16 rounding through 36 layers
+   allows (`FULL_RMS_TOL`, `FULL_MAX_TOL`).  Phase 2 holds `flash_attention` and
+   `flash_decode` to their plain versions (the CPU tests' shapes and the
+   full-width prefill and decode shapes) and times them beside the plain
+   versions and `scaled_dot_product_attention`.
 
-Each path of phases 4-6 runs with the kernels' launch counts set to 0
+Each path of phases 4-7 runs with the kernels' launch counts set to 0
 just before it and read just after; a kernel row's ``launches`` is its
 total over those paths.  The last lines are the card's name and power
 limit, one JSON object with a row per kernel, and
@@ -52,11 +63,24 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
 import torch  # noqa: E402
+import torch.nn.functional as F  # noqa: E402
 
 from repro_torch import random as prng  # noqa: E402
+from repro_torch.configs.registry import get_config, get_smoke_config  # noqa: E402
 from repro_torch.core.spray import SprayMethod, spray_key  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
+from repro_torch.kernels.flash_attention import (  # noqa: E402
+    flash_attention,
+    flash_attention_plain,
+)
+from repro_torch.kernels.flash_decode import (  # noqa: E402
+    flash_decode,
+    flash_decode_plain,
+    normalise,
+)
 from repro_torch.kernels.lt_encode import as_int32_bits, lt_encode, lt_encode_plain  # noqa: E402
+from repro_torch.launch.serve import generate, prompts  # noqa: E402
+from repro_torch.models import model as M  # noqa: E402
 from repro_torch.kernels.spray_select import (  # noqa: E402
     spray_select,
     spray_select_plain,
@@ -76,6 +100,7 @@ GOLDEN_DIR = os.path.join(ROOT, "tests", "golden")
 GOLDEN_FIELDS = ("cct", "sent_total", "dropped_total", "final_b", "received")
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory rate
 CUDA_CORE_OPS_PER_S = 67e12  # H100 SXM float32 rate outside the tensor cores
+BF16_OPS_PER_S = 989e12      # H100 SXM dense bf16 tensor-core rate
 
 # The golden case table of tests/golden/gen_golden_transport.py, copied so
 # the script runs where the JAX package cannot be imported.  A CPU test
@@ -116,6 +141,20 @@ CODED_K, CODED_P, CODED_DMAX = 8192, 1024, 32
 CODED_R = int(CODED_K * 1.6) + 32
 # the router run
 ROUTER_REPLICAS, ROUTER_WINDOWS, ROUTER_BATCH, ROUTER_SLOW = 64, 200, 4096, 7
+# dense serving: qwen3-8b at full width, 4 prompts of 2,048 tokens, 64 tokens
+DENSE_ARCH, DENSE_BATCH, DENSE_PROMPT, DENSE_GEN = "qwen3-8b", 4, 2048, 64
+# the smoke-size runs: tests/test_torch_model.py's shapes and tolerance
+SMOKE_BATCH, SMOKE_PROMPT, SMOKE_STEPS, MODEL_TOL = 2, 48, 8, 5e-2
+# Full width, kernels against plain versions.  Through 36 bf16 layers a
+# rounding difference in an attention output is amplified: on an H100 the
+# plain prefill attention in f32 and in float64 give logits (std 1.0) that
+# differ by rms 0.035 and at most 0.20 (scripts/dense_noise_floor.py).
+# The kernels are held to that scale: rms of the difference at most 0.1
+# of the logits' rms, no logit off by more than 0.5, and greedy tokens
+# equal wherever the top-1 / top-2 margin exceeds twice the largest
+# difference.
+FULL_RMS_TOL, FULL_MAX_TOL = 0.1, 0.5
+FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}  # tests/test_kernels.py's
 
 
 def golden_fabric(n: int, device) -> FabricParams:
@@ -501,6 +540,271 @@ def phase_router(dev, rows):
           + ", ".join(f"[{a}, {b}) {slow[a:b].mean():.6f}" for a, b in spans)
           + "; ids, sequence numbers, weights and shares equal to the CPU run")
 
+# flash_attention cases (B, H, KVH, Sq, Sk, D, causal, window, q_offset): the
+# CPU tests' sweep, q_offset, ragged and windowed shapes, head dims 16 to 256
+ATTN_CASES = (
+    (2, 4, 2, 256, 256, 64, True, None, 0), (1, 8, 8, 128, 128, 128, False, None, 0),
+    (2, 4, 1, 256, 256, 64, True, 64, 0), (1, 2, 2, 512, 512, 32, True, 128, 0),
+    (1, 2, 2, 64, 128, 32, True, None, 64), (2, 4, 2, 48, 48, 16, True, 32, 0),
+    (1, 8, 2, 37, 53, 120, True, None, 16), (2, 4, 4, 17, 64, 64, False, None, 0),
+    (1, 4, 1, 33, 33, 128, True, 8, 0), (1, 2, 1, 16, 16, 16, True, None, -8),
+    (2, 32, 8, 300, 300, 120, True, 100, 0), (1, 2, 1, 70, 70, 256, True, 20, 0),
+)
+# flash_decode cases (B, H, KVH, Sk, D): the CPU tests' sweep and edges
+DECODE_CASES = ((3, 8, 2, 1024, 64), (2, 4, 4, 512, 128), (1, 16, 2, 2048, 64),
+                (2, 8, 2, 56, 16), (2, 8, 2, 100, 120), (3, 8, 2, 64, 64),
+                (2, 32, 8, 4096, 128), (1, 16, 1, 300, 256))
+
+
+def _randn(g, shape, dtype, dev):
+    return torch.randn(shape, generator=g, device=dev).to(dtype)
+
+
+def _check_close(got, want, tol, what):
+    err = float((got.float() - want.float()).abs().max())
+    if not torch.allclose(got.float(), want.float(), atol=tol, rtol=tol):
+        raise AssertionError(f"{what}: max |diff| {err} beyond atol = rtol = {tol}")
+    return err
+
+
+def _timings(name, calls, plain_iters):
+    """Graph-replayed and eager ms per call of each entry of ``calls``."""
+    graphed, eager = {}, {}
+    for key, fn in calls.items():
+        iters = plain_iters if key == "plain" else 20
+        graphed[key] = device_ms(fn, iters=iters)
+        eager[key] = time_ms(fn, iters=iters, warmup=2)
+    print(f"[kernels] {name} graph-replayed ms per call: "
+          + ", ".join(f"{k} {v:.6f}" for k, v in graphed.items()))
+    print(f"[kernels] {name} eager ms per call: "
+          + ", ".join(f"{k} {v:.6f}" for k, v in eager.items()))
+    return graphed
+
+
+def phase_flash_attention(dev):
+    """flash_attention against its plain version; returns the kernel's row."""
+    g = torch.Generator(device=dev).manual_seed(2)
+    checked = 0
+    for dtype, tol in FLASH_TOL.items():
+        for B, H, KVH, Sq, Sk, D, causal, window, q_offset in ATTN_CASES:
+            q = _randn(g, (B, H, Sq, D), dtype, dev)
+            k, v = (_randn(g, (B, KVH, Sk, D), dtype, dev) for _ in range(2))
+            kw = dict(causal=causal, window=window, q_offset=q_offset)
+            got = flash_attention(q, k, v, **kw)
+            torch.cuda.synchronize()
+            _check_close(got, flash_attention_plain(q, k, v, **kw), tol,
+                         f"flash_attention {dtype} {(B, H, KVH, Sq, Sk, D)} {kw}")
+            checked += 1
+    # the main path's prefill shape, and the model's layout: q, k, v are
+    # transposed views of [B, S, heads, D] projections
+    cfg = get_config(DENSE_ARCH)
+    B, S, H, KVH, D = DENSE_BATCH, DENSE_PROMPT, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    q = _randn(g, (B, S, H, D), torch.bfloat16, dev).transpose(1, 2)
+    k, v = (_randn(g, (B, S, KVH, D), torch.bfloat16, dev).transpose(1, 2) for _ in range(2))
+    got = flash_attention(q, k, v)
+    want = flash_attention_plain(q, k, v)
+    err = _check_close(got, want, FLASH_TOL[torch.bfloat16], "flash_attention at full width")
+    del want
+    print(f"[kernels] flash_attention equals its plain version in {checked + 1} cases "
+          f"(max |diff| at full width {err})")
+    qc, kc, vc = q.contiguous(), k.contiguous(), v.contiguous()
+    graphed = _timings("flash_attention", {
+        "kernel": lambda: flash_attention(q, k, v),
+        "plain": lambda: flash_attention_plain(q, k, v),
+        "sdpa": lambda: F.scaled_dot_product_attention(qc, kc, vc, is_causal=True,
+                                                       enable_gqa=True),
+    }, plain_iters=3)
+    # the bound: each visible (query, key) pair costs 4 D flops (QK and PV);
+    # q, k, v read once and o written once
+    pairs = B * H * S * (S + 1) // 2
+    ops = 4 * D * pairs
+    nbytes = 2 * (2 * q.numel() + k.numel() + v.numel())
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / BF16_OPS_PER_S * 1e3
+    bound_by = "bytes" if t_bytes >= t_ops else "operations"
+    print(f"[kernels] flash_attention [B {B}, H {H}, KVH {KVH}, S {S}, D {D}, bf16, causal]: "
+          f"{ops} flops -> {t_ops:.6f} ms, {nbytes} B -> {t_bytes:.6f} ms; kernel "
+          f"{graphed['kernel']:.6f} ms, plain {graphed['plain']:.6f} ms, sdpa "
+          f"{graphed['sdpa']:.6f} ms, bound {max(t_bytes, t_ops):.6f} ms ({bound_by})")
+    return dict(name="flash_attention", route="cuda",
+                source="src/repro_torch/kernels/csrc/flash_attention.cu",
+                replaces="src/repro/kernels/flash_attention.py:92", launches=0,
+                max_abs_err=err, ms=graphed["kernel"], plain_ms=graphed["plain"],
+                bound_ms=max(t_bytes, t_ops), bound_by=bound_by, library_ms=graphed["sdpa"])
+
+
+def _decode_inputs(g, B, H, KVH, Sk, D, dtype, dev):
+    q = _randn(g, (B, H, D), dtype, dev)
+    k, v = (_randn(g, (B, Sk, KVH, D), dtype, dev) for _ in range(2))
+    kv_len = torch.randint(1, Sk + 1, (B,), generator=g, device=dev, dtype=torch.int32)
+    return q, k, v, kv_len
+
+
+def phase_flash_decode(dev):
+    """flash_decode against its plain version; returns the kernel's row."""
+    g = torch.Generator(device=dev).manual_seed(3)
+    checked = 0
+    for dtype, tol in FLASH_TOL.items():
+        for B, H, KVH, Sk, D in DECODE_CASES:
+            q, k, v, kv_len = _decode_inputs(g, B, H, KVH, Sk, D, dtype, dev)
+            kv_len[-1] = Sk
+            if B > 1:
+                kv_len[0] = 0
+            if B > 2:
+                kv_len[1] = 1
+            what = f"flash_decode {dtype} {(B, H, KVH, Sk, D)} kv_len {kv_len.tolist()}"
+            o, m, l = flash_decode(q, k, v, kv_len, return_lse=True)
+            po, pm, pl = flash_decode_plain(q, k, v, kv_len)
+            torch.cuda.synchronize()
+            for got, want in ((o, po), (m, pm), (l, pl)):
+                _check_close(got, want, 2e-5, what)
+            if B > 1 and (not (m[0] == -1e30).all() or l[0].any()):
+                raise AssertionError(f"{what}: an empty row's (m, l) is not (-1e30, 0)")
+            _check_close(flash_decode(q, k, v, kv_len), normalise(po, pl, dtype), tol, what)
+            checked += 1
+    # the main path's decode shape: the cache of 2,048 + 64 slots, all valid
+    cfg = get_config(DENSE_ARCH)
+    B, Sk, H, KVH, D = (DENSE_BATCH, DENSE_PROMPT + DENSE_GEN, cfg.n_heads, cfg.n_kv_heads,
+                        cfg.head_dim)
+    q, k, v, kv_len = _decode_inputs(g, B, H, KVH, Sk, D, torch.bfloat16, dev)
+    kv_len.fill_(Sk)
+    got = flash_decode(q, k, v, kv_len)
+    po, _, pl = flash_decode_plain(q, k, v, kv_len)
+    want = normalise(po, pl, torch.bfloat16)
+    err = _check_close(got, want, FLASH_TOL[torch.bfloat16], "flash_decode at full width")
+    print(f"[kernels] flash_decode equals its plain version in {checked + 1} cases "
+          f"(max |diff| at full width {err})")
+    qs = q[:, :, None]
+    ks, vs = k.transpose(1, 2), v.transpose(1, 2)
+    mask = (torch.arange(Sk, device=dev)[None, :] < kv_len[:, None])[:, None, None, :]
+    graphed = _timings("flash_decode", {
+        "kernel": lambda: flash_decode(q, k, v, kv_len),
+        "plain": lambda: flash_decode_plain(q, k, v, kv_len),
+        "sdpa": lambda: F.scaled_dot_product_attention(qs, ks, vs, attn_mask=mask,
+                                                       enable_gqa=True),
+    }, plain_iters=20)
+    # the bound: q and the kv_len valid cache rows read once, (o, m, l)
+    # written once; 4 D flops per (query head, valid slot)
+    valid = int(kv_len.sum())
+    nbytes = 2 * q.numel() + 2 * 2 * valid * KVH * D + 4 * B + 4 * (B * H * D + 2 * B * H)
+    ops = 4 * H * D * valid
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / BF16_OPS_PER_S * 1e3
+    bound_by = "bytes" if t_bytes >= t_ops else "operations"
+    print(f"[kernels] flash_decode [B {B}, H {H}, KVH {KVH}, Sk {Sk}, D {D}, bf16, kv_len {Sk}]: "
+          f"{nbytes} B -> {t_bytes:.6f} ms, {ops} flops -> {t_ops:.6f} ms; kernel "
+          f"{graphed['kernel']:.6f} ms, plain {graphed['plain']:.6f} ms, sdpa "
+          f"{graphed['sdpa']:.6f} ms, bound {max(t_bytes, t_ops):.6f} ms ({bound_by})")
+    return dict(name="flash_decode", route="cuda",
+                source="src/repro_torch/kernels/csrc/flash_decode.cu",
+                replaces="src/repro/kernels/flash_decode.py:78", launches=0,
+                max_abs_err=err, ms=graphed["kernel"], plain_ms=graphed["plain"],
+                bound_ms=max(t_bytes, t_ops), bound_by=bound_by, library_ms=graphed["sdpa"])
+
+
+def _to(tree, dev):
+    if isinstance(tree, dict):
+        return {k: _to(v, dev) for k, v in tree.items()}
+    return tree.to(dev)
+
+
+def _margin_clear(logits, tol):
+    """[B, G] mask: where the top-1 / top-2 margin exceeds twice ``tol``."""
+    top2 = logits.topk(2, dim=-1).values
+    return (top2[..., 0] - top2[..., 1] > 2 * tol).T
+
+
+def _runs_agree(a, b, tol, what):
+    """``b`` (teacher-forced on ``a``'s tokens) agrees with ``a``: logits
+    within atol = rtol = tol, tokens wherever the margin allows."""
+    err = _check_close(b.logits, a.logits, tol, f"{what}: logits")
+    clear = _margin_clear(a.logits, tol)
+    if not torch.equal(a.tokens[clear], b.tokens[clear]):
+        raise AssertionError(f"{what}: greedy tokens differ where the margin exceeds {2 * tol}")
+    return err, int(clear.sum()), clear.numel()
+
+
+def phase_dense(dev, rows):
+    # (a) smoke size, card against CPU
+    for arch in ("qwen3-8b", "h2o-danube-3-4b"):
+        cfg = get_smoke_config(arch)
+        params = M.compute_params(M.init_params(torch.Generator().manual_seed(0), cfg))
+        tokens = prompts(cfg, SMOKE_BATCH, SMOKE_PROMPT, "cpu")
+        cpu = generate(params, cfg, tokens, SMOKE_STEPS + 1)
+        before = (flash_attention.launches, flash_decode.launches)
+        card = generate(_to(params, dev), cfg, tokens.to(dev), SMOKE_STEPS + 1,
+                        forced=cpu.tokens.to(dev))
+        launched = (flash_attention.launches - before[0], flash_decode.launches - before[1])
+        card.logits, card.tokens = card.logits.cpu(), card.tokens.cpu()
+        err, clear, n = _runs_agree(cpu, card, MODEL_TOL, f"smoke {arch} card vs CPU")
+        cache_err = max(_check_close(card.cache[s][x].cpu(), cpu.cache[s][x], MODEL_TOL,
+                                     f"smoke {arch} cache {s}/{x}")
+                        for s in cpu.cache for x in ("k", "v"))
+        if launched != (cfg.n_layers, cfg.n_layers * SMOKE_STEPS):
+            raise AssertionError(f"smoke {arch}: kernel launches {launched}")
+        print(f"[dense] smoke {arch}: card vs CPU, {SMOKE_BATCH} x {SMOKE_PROMPT} prompt tokens, "
+              f"{SMOKE_STEPS} teacher-forced steps: max |logit diff| {err}, cache {cache_err}, "
+              f"tokens equal at {clear} of {n} clear positions; launches {launched}")
+
+    # (b) full width
+    cfg = get_config(DENSE_ARCH)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    master = M.init_params(torch.Generator(device=dev).manual_seed(0), cfg)
+    params = M.compute_params(master)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in _leaves(master))
+    print(f"[dense] {cfg.name}: {n_params} f32 parameters drawn on the card in "
+          f"{time.perf_counter() - t0:.3f} s, plus bf16 compute copies; "
+          f"{torch.cuda.memory_allocated()} B allocated")
+    tokens = prompts(cfg, DENSE_BATCH, DENSE_PROMPT, dev)
+    torch.cuda.reset_peak_memory_stats()
+    flash_attention.launches = 0
+    flash_decode.launches = 0
+    run = generate(params, cfg, tokens, DENSE_GEN)
+    launches = (flash_attention.launches, flash_decode.launches)
+    peak = torch.cuda.max_memory_allocated()
+    steps = DENSE_GEN - 1
+    want = (cfg.n_layers, cfg.n_layers * steps)
+    if launches != want:
+        raise AssertionError(f"full width: launches {launches}, expected {want}")
+    rows["flash_attention"]["launches"], rows["flash_decode"]["launches"] = launches
+    if not bool(torch.isfinite(run.logits).all()):
+        raise AssertionError("full width: non-finite logits")
+    if run.tokens.shape != (DENSE_BATCH, DENSE_GEN) or run.tokens.dtype != torch.int32:
+        raise AssertionError(f"full width: tokens {tuple(run.tokens.shape)} {run.tokens.dtype}")
+    print(f"[dense] {cfg.name} full width ({cfg.n_layers} layers, d_model {cfg.d_model}), "
+          f"batch {DENSE_BATCH}, prompt {DENSE_PROMPT}, {DENSE_GEN} tokens: prefill "
+          f"{run.prefill_s * 1e3:.3f} ms ({DENSE_BATCH * DENSE_PROMPT / run.prefill_s:.1f} tok/s), "
+          f"decode {run.decode_s * 1e3 / steps:.4f} ms per step "
+          f"({DENSE_BATCH * steps / run.decode_s:.1f} tok/s), peak memory {peak} B; "
+          f"launches flash_attention {launches[0]}, flash_decode {launches[1]}")
+    print(f"[dense] first generated tokens: {run.tokens[:, :8].tolist()}")
+    run.cache = None
+    plain = generate(params, cfg, tokens, DENSE_GEN, plain=True, forced=run.tokens)
+    diff = plain.logits - run.logits
+    err = float(diff.abs().max())
+    rel_rms = float(diff.pow(2).mean().sqrt() / plain.logits.pow(2).mean().sqrt())
+    clear = _margin_clear(plain.logits, err)
+    same = bool(torch.equal(run.tokens[clear], plain.tokens[clear]))
+    steps_err = diff.abs().amax(dim=(1, 2)).tolist()
+    print(f"[dense] full width with the plain versions, teacher-forced: prefill "
+          f"{plain.prefill_s * 1e3:.3f} ms, decode {plain.decode_s * 1e3 / steps:.4f} ms per step; "
+          f"logit diff: max {err} (first step {steps_err[0]}, last {steps_err[-1]}), rms "
+          f"{rel_rms} of the logits' rms (logit std {float(plain.logits.std())}); tokens equal at "
+          f"{int(clear.sum())} of {clear.numel()} positions whose margin exceeds {2 * err}: {same}; "
+          f"equal overall at {float((run.tokens == plain.tokens).float().mean())}")
+    if rel_rms > FULL_RMS_TOL or err > FULL_MAX_TOL or not same:
+        raise AssertionError(f"full width: the kernels' run and the plain run disagree (rms "
+                             f"{rel_rms} > {FULL_RMS_TOL}, max {err} > {FULL_MAX_TOL}, or "
+                             f"tokens differ where the margin exceeds {2 * err})")
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    else:
+        yield tree
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -515,11 +819,13 @@ def main() -> int:
         print(f"[build] {name}: {log.strip()}")
     print(f"[build] {len(logs)} kernel(s) built in {time.time() - t0:.1f} s")
     message = coded_message()
-    rows = {"spray_select": phase_kernels(dev), "lt_encode": phase_lt_encode(dev, message)}
+    rows = {"spray_select": phase_kernels(dev), "lt_encode": phase_lt_encode(dev, message),
+            "flash_attention": phase_flash_attention(dev), "flash_decode": phase_flash_decode(dev)}
     phase_goldens(dev)
     phase_wide(dev, rows)
     phase_coded(dev, rows, message)
     phase_router(dev, rows)
+    phase_dense(dev, rows)
     for row in rows.values():
         if not all(math.isfinite(row[k]) for k in ("ms", "plain_ms", "bound_ms")):
             raise AssertionError(f"non-finite timing in {row}")

@@ -1,14 +1,16 @@
-"""Where the time goes in the coded and router cells, on one NVIDIA card.
+"""Where the time goes in the coded, router and dense cells, on one NVIDIA card.
 
-    python3 scripts/profile_cells.py --cell coded|router [--steps N]
+    python3 scripts/profile_cells.py --cell coded|router|prefill|decode [--steps N]
 
 Runs one cell of `chip_smoke.py` under `torch.profiler` and prints the
 wall time per step, the card's busy and idle shares, the device
 operations per step, and those that take the most device time.  A step
 is one full-width message encoded on the card from host memory and
-peel-decoded on the host (`coded`, default 2), or one router window of
-`simulate_window` + `report` (`router`, default 50).  The wide cell has
-its own tool, `tools/torch_profile_wide.py`.
+peel-decoded on the host (`coded`, default 2), one router window of
+`simulate_window` + `report` (`router`, default 50), one full-width
+qwen3-8b prefill of 4 x 2,048 tokens (`prefill`, default 3) or one
+decode step of those 4 sequences after it (`decode`, default 20).  The
+wide cell has its own tool, `tools/torch_profile_wide.py`.
 """
 from __future__ import annotations
 
@@ -25,7 +27,10 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 from torch.profiler import ProfilerActivity, profile  # noqa: E402
 
-UNIT = {"coded": "message", "router": "window"}
+from repro_torch.train.step import build_decode_step, build_prefill_step  # noqa: E402
+
+UNIT = {"coded": "message", "router": "window", "prefill": "prefill", "decode": "step"}
+STEPS = {"coded": 2, "router": 50, "prefill": 3, "decode": 20}
 
 
 def _device_us(evt) -> float:
@@ -36,8 +41,27 @@ def _device_us(evt) -> float:
     return 0.0
 
 
+def _dense_step(cell: str, dev):
+    """A full-width prefill, or a decode step after one (bf16 weights only)."""
+    cfg = cs.get_config(cs.DENSE_ARCH)
+    params = cs.M.compute_params(cs.M.init_params(torch.Generator(device=dev).manual_seed(0),
+                                                  cfg))
+    B, S = cs.DENSE_BATCH, cs.DENSE_PROMPT
+    tokens = cs.prompts(cfg, B, S, dev)
+    cache = cs.M.make_cache(cfg, B, S + cs.DENSE_GEN, device=dev)
+    prefill = build_prefill_step(cfg)
+    if cell == "prefill":
+        return lambda: prefill(params, {"tokens": tokens}, cache)
+    tok, cache, _ = prefill(params, {"tokens": tokens}, cache)
+    decode = build_decode_step(cfg)
+    pos = torch.full((B,), S, dtype=torch.int32, device=dev)
+    return lambda: decode(params, tok[:, None], pos, cache)  # the same slot each step
+
+
 def _step(cell: str, dev):
     """One step of the cell, built once."""
+    if cell in ("prefill", "decode"):
+        return _dense_step(cell, dev)
     if cell == "coded":
         payload, neigh, valid = cs.coded_message()
 
@@ -55,12 +79,13 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--cell", choices=tuple(UNIT), required=True)
     ap.add_argument("--steps", type=int, default=None,
-                    help="messages or windows (default 2 or 50)")
+                    help="steps to profile (default: coded 2, router 50, prefill 3, "
+                    "decode 20)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("profile_cells: no CUDA device", file=sys.stderr)
         return 2
-    steps = args.steps or {"coded": 2, "router": 50}[args.cell]
+    steps = args.steps or STEPS[args.cell]
     unit = UNIT[args.cell]
     dev = torch.device("cuda")
     print(cs.card_line())

@@ -2,7 +2,9 @@
 
 The reference's parameter objects are handed over as dicts of numpy
 arrays plus their static ints (the tests extract them), so this module
-never sees a JAX type.  A JAX PRNG key is a ``uint32[2]`` array.
+never sees a JAX type.  A JAX PRNG key is a ``uint32[2]`` array.  A model's
+parameter or cache tree is a nested dict of numpy arrays (bfloat16 arrays
+included, recognised by their dtype's name).
 """
 from __future__ import annotations
 
@@ -16,7 +18,7 @@ from repro_torch.net.sender import SenderParams
 from repro_torch.net.topology import EventSchedule, TopologyParams
 
 __all__ = ["fabric_params", "topology_params", "event_schedule", "sender_params",
-           "prng_key"]
+           "prng_key", "model_params", "model_cache"]
 
 
 def _tensors(arrays: Mapping[str, np.ndarray], names, device):
@@ -58,3 +60,29 @@ def prng_key(key: np.ndarray, device=None) -> torch.Tensor:
     if key.shape != (2,) or key.dtype != np.uint32:
         raise ValueError(f"expected a uint32[2] key, got {key.dtype}{key.shape}")
     return torch.as_tensor(key.astype(np.int64), device=device)
+
+
+def _leaf(a, device) -> torch.Tensor:
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":  # no numpy dtype in torch: carry the bits
+        return torch.from_numpy(np.array(a).view(np.int16)).view(torch.bfloat16).to(device)
+    return torch.as_tensor(np.array(a), device=device)
+
+
+def _tree(tree, device):
+    if isinstance(tree, Mapping):
+        return {k: _tree(v, device) for k, v in tree.items()}
+    return _leaf(tree, device)
+
+
+def model_params(tree: Mapping, device=None) -> dict:
+    """The reference's model parameter tree (``init_params``; nested dicts
+    of numpy arrays, period leaves stacked on a leading axis) as the port's
+    tree of tensors, leaf for leaf and in the same dtypes."""
+    return _tree(tree, device)
+
+
+def model_cache(tree: Mapping, device=None) -> dict:
+    """The reference's decode cache tree (``make_cache`` / ``prefill``) as
+    the port's, leaf for leaf (bf16 KV entries keep their bits)."""
+    return _tree(tree, device)

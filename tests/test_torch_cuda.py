@@ -81,3 +81,57 @@ def test_lt_encode_kernel_unaligned_payload(cuda):
     neigh = torch.as_tensor(rng.integers(0, K, (R, 6)).astype(np.int32), device=cuda)
     valid = torch.ones((R, 6), dtype=torch.bool, device=cuda)
     assert torch.equal(lt_encode(payload, neigh, valid), lt_encode_plain(payload, neigh, valid))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,H,KVH,Sq,Sk,D,causal,window,q_offset", [
+    (2, 4, 2, 256, 256, 64, True, None, 0), (1, 8, 8, 128, 128, 128, False, None, 0),
+    (2, 4, 1, 256, 256, 64, True, 64, 0), (1, 2, 2, 512, 512, 32, True, 128, 0),
+    (1, 2, 2, 64, 128, 32, True, None, 64), (1, 8, 2, 37, 53, 120, True, None, 16),
+    (2, 4, 2, 48, 48, 16, True, 32, 0), (1, 2, 1, 16, 16, 16, True, None, -8),
+    (1, 2, 1, 70, 70, 256, True, 20, 0)])
+def test_flash_attention_kernel_matches_plain(cuda, B, H, KVH, Sq, Sk, D, causal, window,
+                                              q_offset, dtype):
+    """The kernel against its plain version, at test_kernels.py's
+    tolerances (2e-5 f32, 2e-2 bf16); one launch per call."""
+    from repro_torch.kernels.flash_attention import flash_attention, flash_attention_plain
+
+    g = torch.Generator(device=cuda).manual_seed(Sq * Sk + D)
+    q, k, v = (torch.randn(shape, generator=g, device=cuda).to(dtype)
+               for shape in ((B, H, Sq, D), (B, KVH, Sk, D), (B, KVH, Sk, D)))
+    kw = dict(causal=causal, window=window, q_offset=q_offset)
+    before = flash_attention.launches
+    got = flash_attention(q, k, v, **kw)
+    assert flash_attention.launches == before + 1
+    tol = 2e-5 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(got.float(), flash_attention_plain(q, k, v, **kw).float(),
+                               atol=tol, rtol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,H,KVH,Sk,D", [(3, 8, 2, 1024, 64), (2, 4, 4, 512, 128),
+                                          (1, 16, 2, 2048, 64), (4, 32, 8, 2112, 128),
+                                          (2, 4, 2, 56, 16), (2, 32, 8, 100, 120),
+                                          (1, 16, 1, 300, 256)])
+def test_flash_decode_kernel_matches_plain(cuda, B, H, KVH, Sk, D, dtype):
+    """(o, m, l) against the plain version, with kv_len 0, 1 and Sk among
+    the rows; one launch per call."""
+    from repro_torch.kernels.flash_decode import flash_decode, flash_decode_plain
+
+    g = torch.Generator(device=cuda).manual_seed(Sk + D)
+    q = torch.randn((B, H, D), generator=g, device=cuda).to(dtype)
+    k, v = (torch.randn((B, Sk, KVH, D), generator=g, device=cuda).to(dtype) for _ in range(2))
+    kv_len = torch.randint(1, Sk + 1, (B,), generator=g, device=cuda, dtype=torch.int32)
+    kv_len[0] = 0
+    if B > 1:
+        kv_len[1] = Sk
+    if B > 2:
+        kv_len[2] = 1
+    before = flash_decode.launches
+    got = flash_decode(q, k, v, kv_len, return_lse=True)
+    assert flash_decode.launches == before + 1
+    for a, b in zip(got, flash_decode_plain(q, k, v, kv_len)):
+        torch.testing.assert_close(a, b, atol=2e-5, rtol=2e-5)
+    assert (got[1][0] == -1e30).all() and not got[2][0].any()

@@ -1,6 +1,7 @@
 """Package rules of the port: no JAX and nothing of `repro` in it, entry
-points that run on the card unless asked otherwise, and a chip smoke test
-whose golden case table is the generator's."""
+points that run on the card unless asked otherwise, a chip smoke test
+whose golden case table is the generator's, and port tests that change no
+process-wide state when they are imported."""
 import ast
 import importlib.util
 import pathlib
@@ -13,6 +14,13 @@ torch = pytest.importorskip("torch")
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT_FILES = (sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
               + sorted((ROOT / "scripts").glob("*.py")))
+PORT_TESTS = sorted((ROOT / "tests").glob("test_torch_*.py"))
+# process-wide state a test file must not touch while it is imported: the
+# module table (a stub left there leaks into every later file of the
+# worker), JAX's config and torch's global defaults
+GLOBAL_STATE = ("sys.modules", "jax.config", "torch.set_default", "torch.set_float32_matmul",
+                "torch.use_deterministic", "torch.backends", "torch.manual_seed",
+                "torch.set_grad_enabled", "np.random.seed", "numpy.random.seed")
 
 
 def _load(name, path):
@@ -35,6 +43,47 @@ def test_port_imports_no_jax_and_nothing_of_repro(path):
         for name in names:
             top = name.split(".")[0]
             assert top not in ("jax", "jaxlib", "repro"), f"{path.name} imports {name}"
+
+
+def _dotted(node):
+    parts = []
+    while isinstance(node, ast.Attribute):
+        parts.append(node.attr)
+        node = node.value
+    if isinstance(node, ast.Name):
+        return ".".join([node.id, *reversed(parts)])
+    return None
+
+
+def _import_time_nodes(tree):
+    """Every node that runs when the module is imported: module and class
+    bodies, decorators and default values, but no function body."""
+    stack = list(tree.body)
+    while stack:
+        node = stack.pop()
+        yield node
+        if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef)):
+            stack.extend(node.decorator_list)
+            stack.extend(node.args.defaults)
+            stack.extend(d for d in node.args.kw_defaults if d is not None)
+        elif isinstance(node, ast.Lambda):
+            stack.extend(node.args.defaults)
+        else:
+            stack.extend(ast.iter_child_nodes(node))
+
+
+@pytest.mark.parametrize("path", PORT_TESTS, ids=lambda p: p.name)
+def test_port_tests_touch_no_global_state_at_import(path):
+    """A port test file that stubs a module or flips a JAX or torch setting
+    at import time changes what every later test file of its worker sees."""
+    for node in _import_time_nodes(ast.parse(path.read_text())):
+        if isinstance(node, ast.ImportFrom) and node.module in ("jax", "sys", "torch"):
+            bad = {"config", "modules", "set_default_dtype", "set_default_device"}
+            names = {a.name for a in node.names}
+            assert not names & bad, f"{path.name} imports {names & bad} from {node.module}"
+        name = _dotted(node) if isinstance(node, ast.Attribute) else None
+        if name is not None:
+            assert not name.startswith(GLOBAL_STATE), f"{path.name} touches {name} at import"
 
 
 def test_chip_smoke_case_table_matches_generator():
@@ -83,6 +132,9 @@ def test_entry_points_default_to_the_card():
     if torch.cuda.is_available():
         pytest.skip("a card is present: the default device is usable here")
     from repro_torch import random as prng
+    from repro_torch.configs.registry import get_smoke_config
+    from repro_torch.launch import serve
+    from repro_torch.models import model
     from repro_torch.net import fountain, sender, topology, transport
     from repro_torch.serve_router import Router
     smoke = _load("chip_smoke", ROOT / "chip_smoke.py")
@@ -101,6 +153,8 @@ def test_entry_points_default_to_the_card():
                                 np.ones((2, 1), bool)),
         lambda: fountain.decode_overhead_curve(16, 1, np.random.default_rng(0)),
         lambda: Router([1, 1]),
+        lambda: model.make_cache(get_smoke_config("qwen3-8b"), 1, 8),
+        lambda: serve.main(["--arch", "qwen3-8b", "--smoke"]),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="no CUDA device"):
