@@ -8,7 +8,9 @@ Phases (the first that fails ends the run with a nonzero exit):
    from the sources in the checkout (one nvcc per source, in parallel).
 2. Hold each kernel against its plain PyTorch version on the card: the
    `spray_select` kernel over every spray method x ell x path count, at
-   131,072 decisions, plus ragged batches and the main path's row shape;
+   131,072 decisions, plus ragged batches, path counts above 128 (129,
+   256, 1,000 and 20,000, which takes several passes over shared memory)
+   and the main path's row shape;
    the `lt_encode` kernel over the reference tests' shapes, ragged shapes
    with negative and out-of-range indices, and the full-width message.
    Results must be equal; each kernel's time is printed beside the plain
@@ -36,10 +38,15 @@ Phases (the first that fails ends the run with a nonzero exit):
    2,048 tokens from ``default_rng(0)``, 64 greedy tokens, then the same
    run teacher-forced with the attention kernels' plain versions; logits
    and tokens must agree as closely as bf16 rounding through 36 layers
-   allows (`FULL_RMS_TOL`, `FULL_MAX_TOL`).  Phase 2 holds `flash_attention` and
-   `flash_decode` to their plain versions (the CPU tests' shapes and the
-   full-width prefill and decode shapes) and times them beside the plain
-   versions and `scaled_dot_product_attention`.
+   allows (`FULL_RMS_TOL`, `FULL_MAX_TOL`); the prefill must launch
+   `flash_attention` once a layer and copy no operand.  Phase 2 holds
+   `flash_attention` (both routes: bf16 on the wgmma / TMA kernel, f32 on
+   the CUDA-core kernel, each case printed with its route and the
+   wrapper's aligning copies) and `flash_decode` to their plain versions
+   (the CPU tests' shapes, a head dim of 20, a misaligned view, key counts
+   that are not a multiple of the key tile, and the full-width prefill and
+   decode shapes) and times them beside the plain versions and
+   `scaled_dot_product_attention`.
 
 Each path of phases 4-7 runs with the kernels' launch counts set to 0
 just before it and read just after; a kernel row's ``launches`` is its
@@ -72,6 +79,7 @@ from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels.flash_attention import (  # noqa: E402
     flash_attention,
     flash_attention_plain,
+    plan,
 )
 from repro_torch.kernels.flash_decode import (  # noqa: E402
     flash_decode,
@@ -251,7 +259,8 @@ def phase_kernels(dev):
                     if not torch.equal(got, want):
                         raise AssertionError(f"spray_select differs: {method.name} ell={ell} n={n}")
                     checked += 1
-    for rows, B, n in ((1, 131071, 16), (3, 1000, 7), (WIDE_FLOWS, WIDE_RATE, WIDE_SPINES)):
+    for rows, B, n in ((1, 131071, 16), (3, 1000, 7), (WIDE_FLOWS, WIDE_RATE, WIDE_SPINES),
+                       (4, 3000, 129), (4, 3000, 256), (4, 3000, 1000), (2, 700, 20000)):
         for method in SprayMethod:
             cnt, c, seeds = spray_inputs(rng, rows, B, n, 10, dev)
             got = spray_select(cnt, c, seeds, ell=10, method=int(method))
@@ -549,6 +558,10 @@ ATTN_CASES = (
     (1, 8, 2, 37, 53, 120, True, None, 16), (2, 4, 4, 17, 64, 64, False, None, 0),
     (1, 4, 1, 33, 33, 128, True, 8, 0), (1, 2, 1, 16, 16, 16, True, None, -8),
     (2, 32, 8, 300, 300, 120, True, 100, 0), (1, 2, 1, 70, 70, 256, True, 20, 0),
+    # a head dim the wgmma route copies (40-byte rows), and key counts that
+    # are not a multiple of the key tile (128 keys; 64 at D = 256)
+    (2, 4, 2, 48, 48, 20, True, None, 0), (1, 4, 2, 200, 333, 128, True, None, 133),
+    (1, 2, 1, 100, 1000, 256, False, None, 0),
 )
 # flash_decode cases (B, H, KVH, Sk, D): the CPU tests' sweep and edges
 DECODE_CASES = ((3, 8, 2, 1024, 64), (2, 4, 4, 512, 128), (1, 16, 2, 2048, 64),
@@ -581,8 +594,21 @@ def _timings(name, calls, plain_iters):
     return graphed
 
 
+def _attn_case(name, q, k, v, kw, tol):
+    """One flash_attention call against its plain version, with its route
+    and the wrapper's aligning copies printed."""
+    before = flash_attention.copies
+    got = flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    err = _check_close(got, flash_attention_plain(q, k, v, **kw), tol,
+                       f"flash_attention {name} {kw}")
+    print(f"[kernels] flash_attention {name} {kw}: route {plan(q, k, v).route}, copies "
+          f"{flash_attention.copies - before}, max |diff| {err}")
+
+
 def phase_flash_attention(dev):
-    """flash_attention against its plain version; returns the kernel's row."""
+    """flash_attention against its plain version; returns the kernel's row
+    (the bf16 route at the prefill shape)."""
     g = torch.Generator(device=dev).manual_seed(2)
     checked = 0
     for dtype, tol in FLASH_TOL.items():
@@ -590,23 +616,38 @@ def phase_flash_attention(dev):
             q = _randn(g, (B, H, Sq, D), dtype, dev)
             k, v = (_randn(g, (B, KVH, Sk, D), dtype, dev) for _ in range(2))
             kw = dict(causal=causal, window=window, q_offset=q_offset)
-            got = flash_attention(q, k, v, **kw)
-            torch.cuda.synchronize()
-            _check_close(got, flash_attention_plain(q, k, v, **kw), tol,
-                         f"flash_attention {dtype} {(B, H, KVH, Sq, Sk, D)} {kw}")
+            _attn_case(f"{str(dtype)[6:]} {(B, H, KVH, Sq, Sk, D)}", q, k, v, kw, tol)
             checked += 1
+        # a view whose base is 2 bytes past a 16-byte boundary: TMA cannot
+        # read it, so the wgmma route copies it first
+        B, H, KVH, S, D = 2, 4, 2, 96, 64
+        flat = _randn(g, (B * H * S * D + 1,), dtype, dev)
+        q = flat[1:].view(B, H, S, D)
+        k, v = (_randn(g, (B, KVH, S, D), dtype, dev) for _ in range(2))
+        _attn_case(f"{str(dtype)[6:]} {(B, H, KVH, S, S, D)}, q misaligned", q, k, v,
+                   dict(causal=True, window=None, q_offset=0), tol)
+        # q, k, v with a head-dim stride of S: transposed views of [B, heads,
+        # D, S] tensors, which both routes copy; the output keeps a unit stride
+        q = _randn(g, (B, H, D, S), dtype, dev).transpose(2, 3)
+        k, v = (_randn(g, (B, KVH, D, S), dtype, dev).transpose(2, 3) for _ in range(2))
+        _attn_case(f"{str(dtype)[6:]} {(B, H, KVH, S, S, D)}, head dim strided", q, k, v,
+                   dict(causal=True, window=None, q_offset=0), tol)
+        checked += 2
     # the main path's prefill shape, and the model's layout: q, k, v are
     # transposed views of [B, S, heads, D] projections
     cfg = get_config(DENSE_ARCH)
     B, S, H, KVH, D = DENSE_BATCH, DENSE_PROMPT, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     q = _randn(g, (B, S, H, D), torch.bfloat16, dev).transpose(1, 2)
     k, v = (_randn(g, (B, S, KVH, D), torch.bfloat16, dev).transpose(1, 2) for _ in range(2))
+    how = plan(q, k, v)
+    if how.route != "wgmma" or any(how.copy):
+        raise AssertionError(f"flash_attention at full width: {how}")
     got = flash_attention(q, k, v)
     want = flash_attention_plain(q, k, v)
     err = _check_close(got, want, FLASH_TOL[torch.bfloat16], "flash_attention at full width")
     del want
     print(f"[kernels] flash_attention equals its plain version in {checked + 1} cases "
-          f"(max |diff| at full width {err})")
+          f"(max |diff| at full width {err}, {how})")
     qc, kc, vc = q.contiguous(), k.contiguous(), v.contiguous()
     graphed = _timings("flash_attention", {
         "kernel": lambda: flash_attention(q, k, v),
@@ -614,6 +655,11 @@ def phase_flash_attention(dev):
         "sdpa": lambda: F.scaled_dot_product_attention(qc, kc, vc, is_causal=True,
                                                        enable_gqa=True),
     }, plain_iters=3)
+    qf, kf, vf = q.float(), k.float(), v.float()
+    f32_ms = device_ms(lambda: flash_attention(qf, kf, vf), iters=3)
+    print(f"[kernels] flash_attention f32 route ({plan(qf, kf, vf).route}) at the same shape: "
+          f"{f32_ms:.6f} ms graph-replayed")
+    del qf, kf, vf
     # the bound: each visible (query, key) pair costs 4 D flops (QK and PV);
     # q, k, v read once and o written once
     pairs = B * H * S * (S + 1) // 2
@@ -621,10 +667,12 @@ def phase_flash_attention(dev):
     nbytes = 2 * (2 * q.numel() + k.numel() + v.numel())
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / BF16_OPS_PER_S * 1e3
     bound_by = "bytes" if t_bytes >= t_ops else "operations"
-    print(f"[kernels] flash_attention [B {B}, H {H}, KVH {KVH}, S {S}, D {D}, bf16, causal]: "
-          f"{ops} flops -> {t_ops:.6f} ms, {nbytes} B -> {t_bytes:.6f} ms; kernel "
-          f"{graphed['kernel']:.6f} ms, plain {graphed['plain']:.6f} ms, sdpa "
-          f"{graphed['sdpa']:.6f} ms, bound {max(t_bytes, t_ops):.6f} ms ({bound_by})")
+    print(f"[kernels] flash_attention [B {B}, H {H}, KVH {KVH}, S {S}, D {D}, bf16, causal, "
+          f"route {how.route}]: {ops} flops -> {t_ops:.6f} ms, {nbytes} B -> {t_bytes:.6f} ms; "
+          f"kernel {graphed['kernel']:.6f} ms ({ops / graphed['kernel'] / 1e9:.1f} TFLOP/s, "
+          f"{100 * max(t_bytes, t_ops) / graphed['kernel']:.1f}% of the bound), plain "
+          f"{graphed['plain']:.6f} ms, sdpa {graphed['sdpa']:.6f} ms, bound "
+          f"{max(t_bytes, t_ops):.6f} ms ({bound_by})")
     return dict(name="flash_attention", route="cuda",
                 source="src/repro_torch/kernels/csrc/flash_attention.cu",
                 replaces="src/repro/kernels/flash_attention.py:92", launches=0,
@@ -735,13 +783,17 @@ def phase_dense(dev, rows):
         launched = (flash_attention.launches - before[0], flash_decode.launches - before[1])
         card.logits, card.tokens = card.logits.cpu(), card.tokens.cpu()
         err, clear, n = _runs_agree(cpu, card, MODEL_TOL, f"smoke {arch} card vs CPU")
+        # how much of the allowance atol + rtol |logit| the worst logit uses
+        used = float(((card.logits - cpu.logits).abs()
+                      / (MODEL_TOL * (1 + cpu.logits.abs()))).max())
         cache_err = max(_check_close(card.cache[s][x].cpu(), cpu.cache[s][x], MODEL_TOL,
                                      f"smoke {arch} cache {s}/{x}")
                         for s in cpu.cache for x in ("k", "v"))
         if launched != (cfg.n_layers, cfg.n_layers * SMOKE_STEPS):
             raise AssertionError(f"smoke {arch}: kernel launches {launched}")
         print(f"[dense] smoke {arch}: card vs CPU, {SMOKE_BATCH} x {SMOKE_PROMPT} prompt tokens, "
-              f"{SMOKE_STEPS} teacher-forced steps: max |logit diff| {err}, cache {cache_err}, "
+              f"{SMOKE_STEPS} teacher-forced steps: max |logit diff| {err} ({used:.4f} of the "
+              f"tolerance at the worst logit), cache {cache_err}, "
               f"tokens equal at {clear} of {n} clear positions; launches {launched}")
 
     # (b) full width
@@ -758,14 +810,18 @@ def phase_dense(dev, rows):
     tokens = prompts(cfg, DENSE_BATCH, DENSE_PROMPT, dev)
     torch.cuda.reset_peak_memory_stats()
     flash_attention.launches = 0
+    flash_attention.copies = 0
     flash_decode.launches = 0
     run = generate(params, cfg, tokens, DENSE_GEN)
     launches = (flash_attention.launches, flash_decode.launches)
+    copies = flash_attention.copies
     peak = torch.cuda.max_memory_allocated()
     steps = DENSE_GEN - 1
     want = (cfg.n_layers, cfg.n_layers * steps)
     if launches != want:
         raise AssertionError(f"full width: launches {launches}, expected {want}")
+    if copies != 0:
+        raise AssertionError(f"full width: flash_attention copied {copies} operands")
     rows["flash_attention"]["launches"], rows["flash_decode"]["launches"] = launches
     if not bool(torch.isfinite(run.logits).all()):
         raise AssertionError("full width: non-finite logits")
@@ -776,7 +832,8 @@ def phase_dense(dev, rows):
           f"{run.prefill_s * 1e3:.3f} ms ({DENSE_BATCH * DENSE_PROMPT / run.prefill_s:.1f} tok/s), "
           f"decode {run.decode_s * 1e3 / steps:.4f} ms per step "
           f"({DENSE_BATCH * steps / run.decode_s:.1f} tok/s), peak memory {peak} B; "
-          f"launches flash_attention {launches[0]}, flash_decode {launches[1]}")
+          f"launches flash_attention {launches[0]} ({copies} aligning copies), flash_decode "
+          f"{launches[1]}")
     print(f"[dense] first generated tokens: {run.tokens[:, :8].tolist()}")
     run.cache = None
     plain = generate(params, cfg, tokens, DENSE_GEN, plain=True, forced=run.tokens)

@@ -19,8 +19,10 @@ __all__ = ["CSRC", "BUILD_DIR", "NVCC_FLAGS", "load", "build_all"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
+# -ldl: flash_attention.cu takes cuTensorMapEncodeTiled from the loaded
+# driver with dlopen, which glibc before 2.34 keeps in libdl
 NVCC_FLAGS = ("-O3", "-gencode=arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-shared", "-Xcompiler", "-fPIC", "-fmad=false")
+              "-shared", "-Xcompiler", "-fPIC", "-fmad=false", "-ldl")
 
 _LOADED: Dict[str, ctypes.CDLL] = {}
 

@@ -11,25 +11,39 @@ to q's type (f32 or bf16).  A row that sees no key comes out as zeros.
 Any Sq, Sk and ``D <= 256`` are taken (the TPU kernel's tiling limits do
 not carry over).
 
-`flash_attention` launches the CUDA kernel (``csrc/flash_attention.cu``)
-on CUDA tensors and runs `flash_attention_plain` on CPU tensors; a CUDA
-tensor never falls back to the plain version.  The kernel reads q, k and
-v through their strides (the head-dim stride must be 1), so the model's
-``[B, S, H, D]`` projections go in as transposed views without a copy;
-the output has q's strides.
+`flash_attention` runs `flash_attention_plain` on CPU tensors and, on CUDA
+tensors, one of two kernels chosen by dtype (`plan`):
+
+* bf16: the tensor-core kernel (``csrc/flash_attention.cu``: wgmma, TMA and
+  a pipelined K/V ring).  TMA reads q, k and v through tensor maps, which
+  need a 16-byte-aligned base and strides that are multiples of 16 bytes;
+  the model's ``[B, S, H, D]`` projections, handed over as transposed
+  views, meet that at every head dim that is a multiple of 8.  An operand
+  that does not (D = 20, an odd view) is first copied into a zero-padded
+  contiguous buffer, and `flash_attention.copies` counts it.
+* f32: the CUDA-core kernel (``csrc/flash_attention_f32.cu``), whose f32
+  products meet the f32 tolerance that TF32 tensor-core products would
+  not.  It reads any strides with a unit head-dim stride.
+
+A CUDA tensor never falls back to the plain version.  The output has q's
+layout.
 """
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
 import math
 
 import torch
 
-__all__ = ["flash_attention", "flash_attention_plain"]
+__all__ = ["flash_attention", "flash_attention_plain", "plan", "Plan", "ROUTES"]
 
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# the kernel each dtype takes on the card, and the source it is built from
+ROUTES = {torch.bfloat16: "wgmma", torch.float32: "cuda-core"}
+_SOURCES = {"wgmma": "flash_attention", "cuda-core": "flash_attention_f32"}
 MAX_HEAD_DIM = 256
+TMA_ALIGN = 16  # bytes: a tensor map's base and strides
 
 
 def _scale(scale, D: int) -> float:
@@ -71,7 +85,7 @@ def _check(q, k, v, window):
         raise ValueError(f"q {tuple(q.shape)} and k {tuple(k.shape)} disagree on B or D")
     if H % k.shape[1]:
         raise ValueError(f"{H} query heads do not group over {k.shape[1]} kv heads")
-    if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+    if q.dtype not in ROUTES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"q, k, v must all be float32 or bfloat16, got "
                         f"{q.dtype}, {k.dtype}, {v.dtype}")
     if min(B, H, Sq, k.shape[2], D) < 1 or D > MAX_HEAD_DIM:
@@ -81,17 +95,53 @@ def _check(q, k, v, window):
         raise ValueError(f"window must be None or >= 1, got {window}")
 
 
-def _unit_last(t: torch.Tensor) -> torch.Tensor:
-    return t if t.stride(-1) == 1 else t.contiguous()
+@dataclasses.dataclass(frozen=True)
+class Plan:
+    """How a CUDA call runs: the kernel's route, and which of q, k, v the
+    wrapper copies first."""
+
+    route: str
+    copy: tuple
+
+
+def _tma_ready(t: torch.Tensor) -> bool:
+    """TMA can read ``t`` as it is: unit last stride, 16-byte-aligned base,
+    every other stride of an axis longer than one a positive multiple of 16
+    bytes."""
+    if t.stride(-1) != 1 or t.data_ptr() % TMA_ALIGN:
+        return False
+    size = t.element_size()
+    return all(n == 1 or (s > 0 and (s * size) % TMA_ALIGN == 0)
+               for n, s in zip(t.shape[:-1], t.stride()[:-1]))
+
+
+def plan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> Plan:
+    """The route by dtype and the operands to copy."""
+    route = ROUTES[q.dtype]
+    if route == "wgmma":
+        return Plan(route, tuple(not _tma_ready(t) for t in (q, k, v)))
+    return Plan(route, tuple(t.stride(-1) != 1 for t in (q, k, v)))
+
+
+def _aligned_copy(t: torch.Tensor, route: str) -> torch.Tensor:
+    """A contiguous copy; on the wgmma route with D padded with zeros to a
+    multiple of 8, so that every stride is a multiple of 16 bytes."""
+    if route != "wgmma":
+        return t.contiguous()
+    D = t.shape[-1]
+    out = torch.zeros((*t.shape[:-1], -(-D // 8) * 8), dtype=t.dtype, device=t.device)
+    out[..., :D] = t
+    return out[..., :D]
 
 
 @functools.cache
-def _launcher():
-    """The kernel's C entry point, built and bound at the first CUDA call."""
+def _launcher(route: str):
+    """The route's C entry point, built and bound at its first CUDA call."""
     from repro_torch.kernels.build import load
 
-    fn = load("flash_attention").flash_attention_launch
-    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
+    name = _SOURCES[route]
+    fn = getattr(load(name), f"{name}_launch")
+    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
                    + [ctypes.c_void_p, ctypes.c_float] + [ctypes.c_int] * 3 + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
@@ -100,7 +150,7 @@ def _launcher():
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int | None = None,
                     scale: float | None = None, q_offset: int = 0) -> torch.Tensor:
-    """Attention output like q; launches the CUDA kernel for CUDA tensors."""
+    """Attention output like q; launches a CUDA kernel for CUDA tensors."""
     _check(q, k, v, window)
     dev = q.device
     if dev.type == "cpu" and k.device == dev and v.device == dev:
@@ -108,20 +158,25 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                                      q_offset=q_offset)
     if dev.type != "cuda" or k.device != dev or v.device != dev:
         raise ValueError("flash_attention: all tensors must be on one CUDA device or the CPU")
-    fn = _launcher()
-    q, k, v = _unit_last(q), _unit_last(k), _unit_last(v)
+    how = plan(q, k, v)
+    fn = _launcher(how.route)
+    q, k, v = (_aligned_copy(t, how.route) if c else t for t, c in zip((q, k, v), how.copy))
+    flash_attention.copies += sum(how.copy)
+    # like the q the kernel reads, whose head-dim stride is 1: both kernels
+    # write o with a unit head-dim stride
     o = torch.empty_like(q)
     B, H, Sq, D = q.shape
     KVH, Sk = k.shape[1], k.shape[2]
     strides = (ctypes.c_longlong * 12)(*(t.stride(i) for t in (q, k, v, o) for i in range(3)))
     stream = torch.cuda.current_stream(dev).cuda_stream
-    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), _DTYPES[q.dtype],
-             B, H, KVH, Sq, Sk, D, strides, _scale(scale, D), int(causal),
-             0 if window is None else int(window), int(q_offset), stream)
+    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), B, H, KVH, Sq, Sk, D,
+             strides, _scale(scale, D), int(causal), 0 if window is None else int(window),
+             int(q_offset), stream)
     if err != 0:
-        raise RuntimeError(f"flash_attention launch failed with CUDA error {err}")
+        raise RuntimeError(f"flash_attention ({how.route}) launch failed with error {err}")
     flash_attention.launches += 1
     return o
 
 
 flash_attention.launches = 0
+flash_attention.copies = 0

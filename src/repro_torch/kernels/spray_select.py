@@ -2,7 +2,7 @@
 
 Replaces the Pallas TPU kernel `spray_select_pallas`
 (`repro/kernels/spray_select.py`), generalised over rows: counters
-``[R, B]``, inclusive cumulative profiles ``c [R, n]`` and seeds
+``[R, B]``, inclusive cumulative profiles ``c [R, n]`` (any n) and seeds
 ``[R, 2]`` give paths ``int32[R, B]``.  With R = 1 it is the TPU kernel's
 function; COMBINED is covered too (the TPU kernel refuses it).
 
@@ -22,9 +22,7 @@ import torch
 from repro_torch.core.spray import select_path, spray_key
 from repro_torch.random import M32
 
-__all__ = ["spray_select", "spray_select_plain", "MAX_PATHS"]
-
-MAX_PATHS = 128
+__all__ = ["spray_select", "spray_select_plain"]
 
 
 def spray_select_plain(counters: torch.Tensor, c: torch.Tensor,
@@ -53,8 +51,8 @@ def _check(counters, c, seeds, ell, method):
                          f"c {tuple(c.shape)}, seeds {tuple(seeds.shape)}")
     if B < 1 or R < 1:
         raise ValueError("empty counter batch")
-    if not 1 <= c.shape[1] <= MAX_PATHS:
-        raise ValueError(f"between 1 and {MAX_PATHS} paths supported, got {c.shape[1]}")
+    if c.shape[1] < 1:
+        raise ValueError("no paths")
     if not 1 <= ell <= 31:
         raise ValueError(f"ell must be in [1, 31], got {ell}")
     if method not in (0, 1, 2, 3):

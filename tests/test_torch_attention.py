@@ -9,7 +9,9 @@ interpret mode (as `tests/test_kernels.py` runs them), the references in
 Tolerances are `tests/test_kernels.py`'s: 2e-5 for f32, 2e-2 for bf16.
 Every reference call is jitted; inputs stay numpy arrays between calls.
 """
+import ast
 import functools
+import pathlib
 
 import numpy as np
 import pytest
@@ -21,6 +23,7 @@ import jax.numpy as jnp  # noqa: E402
 
 from repro.kernels import ops, ref  # noqa: E402
 from repro_torch import convert  # noqa: E402
+from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels.flash_attention import flash_attention  # noqa: E402
 from repro_torch.kernels.flash_decode import (  # noqa: E402
     decode_splits,
@@ -141,6 +144,109 @@ def test_flash_attention_rejects_bad_operands():
     with pytest.raises(ValueError):
         flash_attention(torch.zeros((1, 1, 8, 300)), torch.zeros((1, 1, 8, 300)),
                         torch.zeros((1, 1, 8, 300)))
+
+
+# ---------------------------------------------------------------------------
+# the bf16 (wgmma) route: its rounding points, and the wrapper's plan
+# ---------------------------------------------------------------------------
+def _emulate_wgmma(q, k, v, *, causal, window, q_offset):
+    """The bf16 kernel's arithmetic on the CPU, tile by tile of its key
+    tile (128 keys; 64 at D > 128): S = q . k of bf16 values summed in f32,
+    times scale * log2(e) in f32, masked to -1e30; the running max m and
+    sum l in f32 with exp2; p = ok ? exp2(s - m) : 0, rounded to bf16
+    before P . V, whose sum is f32; o = acc / where(l > 0, l, 1) in bf16.
+    Key tiles start at 0, as the kernel's do: a tile it skips is wholly
+    masked, and a wholly masked tile changes neither m, l nor acc."""
+    q, k, v = (torch.as_tensor(np.asarray(x, np.float32)) for x in (q, k, v))
+    B, H, Sq, D = q.shape
+    Sk, group = k.shape[2], H // k.shape[1]
+    bk = 64 if D > 128 else 128
+    k, v = k.repeat_interleave(group, 1), v.repeat_interleave(group, 1)
+    c = torch.tensor(np.float32(1 / np.sqrt(D)) * np.float32(np.log2(np.e)))
+    pos = torch.arange(Sq)[:, None] + q_offset
+    m = torch.full((B, H, Sq), -1e30)
+    l = torch.zeros((B, H, Sq))
+    acc = torch.zeros((B, H, Sq, D))
+    for kt in range(0, Sk, bk):
+        keys = torch.arange(kt, min(kt + bk, Sk))[None, :]
+        ok = torch.ones((Sq, keys.shape[1]), dtype=torch.bool)
+        if causal:
+            ok &= keys <= pos
+        if window is not None:
+            ok &= keys > pos - window
+        s = torch.einsum("bhqd,bhkd->bhqk", q, k[:, :, kt:kt + bk]) * c
+        s = torch.where(ok, s, torch.tensor(-1e30))
+        m_new = torch.maximum(m, s.amax(-1))
+        alpha = torch.exp2(m - m_new)
+        p = torch.where(ok, torch.exp2(s - m_new[..., None]), torch.tensor(0.0))
+        l = l * alpha + p.sum(-1)
+        acc = acc * alpha[..., None] + torch.einsum(
+            "bhqk,bhkd->bhqd", p.bfloat16().float(), v[:, :, kt:kt + bk])
+        m = m_new
+    return (acc / torch.where(l > 0, l, torch.tensor(1.0))[..., None]).bfloat16()
+
+
+def _chip_smoke_table(name):
+    """A literal table of chip_smoke.py, read without running the script."""
+    tree = ast.parse((pathlib.Path(__file__).resolve().parents[1] / "chip_smoke.py").read_text())
+    node = next(n for n in tree.body if isinstance(n, ast.Assign)
+                and getattr(n.targets[0], "id", None) == name)
+    return ast.literal_eval(node.value)
+
+
+@pytest.mark.parametrize("B,H,KVH,Sq,Sk,D,causal,window,q_offset",
+                         _chip_smoke_table("ATTN_CASES"))
+def test_wgmma_rounding_meets_the_bf16_tolerance(B, H, KVH, Sq, Sk, D, causal, window,
+                                                 q_offset):
+    """The bf16 kernel's rounding points (P in bf16 before P . V) keep it
+    within 2e-2 of the reference and of the Pallas kernel in interpret
+    mode (one tile, as the ragged tests run it) on chip_smoke.py's cases."""
+    q, k, v = _qkv(Sq * Sk + D, B, H, KVH, Sq, Sk, D, jnp.bfloat16)
+    kw = dict(causal=causal, window=window, q_offset=q_offset)
+    got = _emulate_wgmma(q, k, v, **kw)
+    _close(got, _ref(ref.flash_attention_ref, q, k, v, **kw), TOL[jnp.bfloat16])
+    _close(got, _ref(ops.flash_attention, q, k, v, backend="pallas", block_q=Sq, block_k=Sk,
+                     **kw), TOL[jnp.bfloat16])
+    if q_offset < 0:
+        assert not _np(got)[:, :, :-q_offset].any()
+
+
+def test_wgmma_plan_of_the_model_views():
+    """The model's transposed ``[B, S, heads, D]`` projections at the zoo's
+    head dims go to the wgmma route without a copy."""
+    for D in (128, 120, 64, 16, 256, 192):
+        q = torch.zeros((2, 24, 8, D), dtype=torch.bfloat16).transpose(1, 2)
+        k = torch.zeros((2, 24, 2, D), dtype=torch.bfloat16).transpose(1, 2)
+        assert fa.plan(q, k, k) == fa.Plan("wgmma", (False, False, False))
+
+
+def test_wgmma_plan_copies_what_tma_cannot_read():
+    """D = 20 (40-byte rows), a base 2 bytes past a 16-byte boundary and a
+    non-unit head-dim stride are copied; the aligned copy needs no copy."""
+    t = torch.zeros((2, 4, 48, 20), dtype=torch.bfloat16)
+    assert fa.plan(t, t, t) == fa.Plan("wgmma", (True, True, True))
+    c = fa._aligned_copy(t, "wgmma")
+    assert c.shape == t.shape and fa.plan(c, c, c).copy == (False, False, False)
+    flat = torch.arange(2 * 4 * 48 * 64 + 1, dtype=torch.float32).bfloat16()
+    q = flat[1:].view(2, 4, 48, 64)
+    k = torch.zeros((2, 2, 48, 64), dtype=torch.bfloat16)
+    assert q.data_ptr() % 16 == 2
+    assert fa.plan(q, k, k) == fa.Plan("wgmma", (True, False, False))
+    c = fa._aligned_copy(q, "wgmma")
+    assert c.data_ptr() % 16 == 0 and torch.equal(c, q)
+    odd = torch.zeros((2, 4, 64, 48), dtype=torch.bfloat16).transpose(2, 3)
+    assert fa.plan(odd, odd, odd).copy == (True, True, True)
+
+
+def test_plan_routes_by_dtype():
+    """f32 takes the CUDA-core route and copies only a non-unit head-dim
+    stride; bf16 takes the wgmma route."""
+    t = torch.zeros((1, 2, 16, 20))
+    assert fa.plan(t, t, t) == fa.Plan("cuda-core", (False, False, False))
+    odd = torch.zeros((1, 2, 20, 16)).transpose(2, 3)
+    assert fa.plan(odd, t, t) == fa.Plan("cuda-core", (True, False, False))
+    assert fa.plan(t.bfloat16(), t.bfloat16(), t.bfloat16()).route == "wgmma"
+    assert fa.ROUTES == {torch.bfloat16: "wgmma", torch.float32: "cuda-core"}
 
 
 # ---------------------------------------------------------------------------

@@ -153,7 +153,7 @@ _jbatch = jax.jit(jspray.spray_batch, static_argnums=2)
 
 
 @pytest.mark.parametrize("method", list(spray.SprayMethod))
-@pytest.mark.parametrize("n", [1, 5, 16, 128])
+@pytest.mark.parametrize("n", [1, 5, 16, 128, 129, 256, 1000])
 def test_spray_batch_paths_and_reseed_match(method, n):
     """Paths, per-path sequence numbers, counters (wrapping past 2**32) and
     reseeded seeds equal the reference's over several batches."""
@@ -277,3 +277,80 @@ def test_small_core_helpers_match():
         profile.validate_profile(bad)
     with pytest.raises(ValueError, match="sum"):
         profile.validate_profile(profile.make_profile(torch.tensor([3, 1, 14]), 4))
+
+
+# --- float sums over paths above 16 terms (numerics) -----------------------
+
+from repro.net import policies as jpolicies  # noqa: E402
+from repro.net import policy_state as jpstate  # noqa: E402
+from repro_torch import numerics  # noqa: E402
+from repro_torch.net import policies, policy_state  # noqa: E402
+
+_jsum = jax.jit(lambda x: jnp.sum(x, axis=-1))
+_jcumsum = jax.jit(lambda x: jnp.cumsum(x, axis=-1))
+
+
+def _spread(rng, shape):
+    """float32 terms over six decades, so that another association of the
+    same sum rounds differently."""
+    return (rng.random(shape) * rng.choice([1e-3, 1.0, 7.3, 1e3], shape)).astype(np.float32)
+
+
+@pytest.mark.parametrize("n", [17, 32, 33, 48, 64, 100, 1000])
+def test_fold_order_matches_jitted_reference(n):
+    """`fold_sum` and `fold_cumsum` equal jitted `jnp.sum` / `jnp.cumsum`
+    bit for bit along either axis: XLA:CPU's 32-term windows and 16-term
+    scan blocks, not a left fold."""
+    x = _spread(np.random.default_rng(n), (64, n))
+    want_sum, want_scan = np.asarray(_jsum(x)), np.asarray(_jcumsum(x))
+    t = torch.as_tensor(x)
+    assert np.array_equal(numerics.fold_sum(t).numpy(), want_sum)
+    assert np.array_equal(numerics.fold_sum(t.T.contiguous(), dim=0).numpy(), want_sum)
+    assert np.array_equal(numerics.fold_cumsum(t).numpy(), want_scan)
+    # the left folds these replace would not have done (at 17 terms the
+    # two orders coincide: the second block holds one term)
+    if n >= 2 * numerics.SCAN_BASE:
+        assert not np.array_equal(np.cumsum(x, axis=-1, dtype=np.float32), want_scan)
+    if n > numerics.SUM_WINDOW:
+        assert not np.array_equal(np.cumsum(x, axis=-1, dtype=np.float32)[:, -1], want_sum)
+
+
+@pytest.mark.parametrize("n", [32, 48, 64])
+def test_weighted_badness_above_16_paths(n):
+    """The reference's eager sum of the products at 32 to 64 paths."""
+    rng = np.random.default_rng(100 + n)
+    for _ in range(20):
+        sev = _spread(rng, n)
+        b = rng.integers(0, 1024, n).astype(np.int32)
+        want = np.asarray(jfb.weighted_badness(jnp.asarray(b), jnp.asarray(sev)))
+        got = feedback.weighted_badness(torch.as_tensor(b), torch.as_tensor(sev)).numpy()
+        assert got.dtype == want.dtype and got == want
+
+
+@pytest.mark.parametrize("n", [32, 48, 64])
+def test_cc_coupled_lanes_above_16_paths(n):
+    """CC_COUPLED's lanes, mapped through the windows' cumulative sum, equal
+    the reference's jitted branch with fractional windows on n paths."""
+    rng = np.random.default_rng(200 + n)
+    rate, ell = 512, 10
+    ccw = (policy_state.CCW_MIN + rng.random(n) * 31.0).astype(np.float32)
+    sa, sb, j0 = int(rng.integers(0, 1 << ell)), int(rng.integers(0, 1 << (ell - 1))) * 2 + 1, 77
+    jprofile = jprof.uniform_profile(n, ell)
+    jst = jspray.make_spray_state(jprofile, method=jspray.SprayMethod.SHUFFLE_1, sa=sa, sb=sb,
+                                  j0=j0)
+    empty = jnp.zeros((0,), jnp.float32)
+    jps = jpstate.PolicyState(rtt=empty, penalty=empty, entropy=jnp.zeros((0,), jnp.uint32),
+                              ccw=jnp.asarray(ccw))
+    branch = int(jpolicies.Policy.CC_COUPLED)
+    want = jax.jit(lambda st, prof, ps: jpolicies.policy_branches(
+        rate, n, st, prof, jax.random.PRNGKey(0), jnp.int32(0), ps)[branch]())(
+            jst, jprofile, jps)
+    tst = spray.SprayState(j=torch.tensor([j0]), sa=torch.tensor([sa]), sb=torch.tensor([sb]),
+                           ell=ell, method=int(spray.SprayMethod.SHUFFLE_1))
+    none = torch.zeros((1, 0))
+    tps = policy_state.PolicyState(rtt=none, penalty=none,
+                                   entropy=torch.zeros((1, 0), dtype=torch.int64),
+                                   ccw=torch.as_tensor(ccw)[None])
+    got = policies.assign_lanes(policies.Policy.CC_COUPLED, rate, n, tst,
+                                profile.uniform_profile(n, ell), torch.zeros(1), tps, None)
+    assert np.array_equal(np.asarray(want), got[0].numpy())

@@ -20,7 +20,9 @@ def cuda():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("R,B,n", [(1, 131072, 16), (4096, 32, 16), (3, 1001, 128), (2, 5, 1)])
+@pytest.mark.parametrize("R,B,n", [(1, 131072, 16), (4096, 32, 16), (3, 1001, 128), (2, 5, 1),
+                                   (3, 1001, 129), (2, 300, 256), (2, 300, 1000),
+                                   (1, 300, 20000)])
 def test_spray_select_kernel_matches_plain(cuda, R, B, n):
     rng = np.random.default_rng(R * B + n)
     for method in range(4):
@@ -90,11 +92,14 @@ def test_lt_encode_kernel_unaligned_payload(cuda):
     (2, 4, 1, 256, 256, 64, True, 64, 0), (1, 2, 2, 512, 512, 32, True, 128, 0),
     (1, 2, 2, 64, 128, 32, True, None, 64), (1, 8, 2, 37, 53, 120, True, None, 16),
     (2, 4, 2, 48, 48, 16, True, 32, 0), (1, 2, 1, 16, 16, 16, True, None, -8),
-    (1, 2, 1, 70, 70, 256, True, 20, 0)])
+    (1, 2, 1, 70, 70, 256, True, 20, 0), (2, 4, 2, 48, 48, 20, True, None, 0),
+    (1, 4, 2, 200, 333, 128, True, None, 133), (1, 2, 1, 100, 1000, 256, False, None, 0)])
 def test_flash_attention_kernel_matches_plain(cuda, B, H, KVH, Sq, Sk, D, causal, window,
                                               q_offset, dtype):
     """The kernel against its plain version, at test_kernels.py's
-    tolerances (2e-5 f32, 2e-2 bf16); one launch per call."""
+    tolerances (2e-5 f32, 2e-2 bf16); one launch per call.  bf16 takes the
+    wgmma route (D = 20 through the aligning copy; key counts that are not
+    a multiple of the key tile), f32 the CUDA-core route."""
     from repro_torch.kernels.flash_attention import flash_attention, flash_attention_plain
 
     g = torch.Generator(device=cuda).manual_seed(Sq * Sk + D)
@@ -135,3 +140,50 @@ def test_flash_decode_kernel_matches_plain(cuda, B, H, KVH, Sk, D, dtype):
     for a, b in zip(got, flash_decode_plain(q, k, v, kv_len)):
         torch.testing.assert_close(a, b, atol=2e-5, rtol=2e-5)
     assert (got[1][0] == -1e30).all() and not got[2][0].any()
+
+
+@pytest.mark.cuda
+def test_flash_attention_misaligned_view_is_copied(cuda):
+    """A bf16 view 2 bytes past a 16-byte boundary is copied for TMA (one
+    copy counted) and gives the plain version's result; the model's
+    transposed views are read in place."""
+    from repro_torch.kernels.flash_attention import flash_attention, flash_attention_plain
+
+    g = torch.Generator(device=cuda).manual_seed(4)
+    B, H, KVH, S, D = 2, 4, 2, 96, 64
+    flat = torch.randn(B * H * S * D + 1, generator=g, device=cuda).bfloat16()
+    q = flat[1:].view(B, H, S, D)
+    k, v = (torch.randn((B, KVH, S, D), generator=g, device=cuda).bfloat16() for _ in range(2))
+    before = flash_attention.copies
+    got = flash_attention(q, k, v)
+    assert flash_attention.copies == before + 1
+    torch.testing.assert_close(got.float(), flash_attention_plain(q, k, v).float(),
+                               atol=2e-2, rtol=2e-2)
+    qm, km, vm = (torch.randn((B, S, h, 128), generator=g, device=cuda).bfloat16().transpose(1, 2)
+                  for h in (H, KVH, KVH))
+    before = flash_attention.copies
+    got = flash_attention(qm, km, vm)
+    assert flash_attention.copies == before and got.stride() == qm.stride()
+    torch.testing.assert_close(got.float(), flash_attention_plain(qm, km, vm).float(),
+                               atol=2e-2, rtol=2e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_flash_attention_strided_head_dim(cuda, dtype):
+    """q, k, v with a head-dim stride of S (transposed views of [B, heads,
+    D, S] tensors) are copied by both routes, and the output, written with
+    a unit head-dim stride, equals the plain version's."""
+    from repro_torch.kernels.flash_attention import flash_attention, flash_attention_plain
+
+    g = torch.Generator(device=cuda).manual_seed(5)
+    B, H, KVH, S, D = 2, 4, 2, 96, 64
+    q = torch.randn((B, H, D, S), generator=g, device=cuda).to(dtype).transpose(2, 3)
+    k, v = (torch.randn((B, KVH, D, S), generator=g, device=cuda).to(dtype).transpose(2, 3)
+            for _ in range(2))
+    before = flash_attention.copies
+    got = flash_attention(q, k, v)
+    assert flash_attention.copies == before + 3 and got.stride(-1) == 1
+    tol = 2e-5 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(got.float(), flash_attention_plain(q, k, v).float(),
+                               atol=tol, rtol=tol)

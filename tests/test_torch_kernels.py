@@ -89,8 +89,8 @@ def test_wrapper_rejects_bad_input():
     cnt, c, seeds = _row(np.arange(8, dtype=np.uint32), np.array([4, 8, 16]), 0, 1)
     with pytest.raises(ValueError):
         spray_select(cnt[0], c, seeds, ell=4, method=1)
-    with pytest.raises(ValueError):
-        spray_select(cnt, torch.zeros((1, 129), dtype=torch.int32), seeds, ell=10, method=1)
+    with pytest.raises(ValueError):  # no paths (any n >= 1 is taken)
+        spray_select(cnt, torch.zeros((1, 0), dtype=torch.int32), seeds, ell=10, method=1)
     with pytest.raises(ValueError):
         spray_select(cnt, c, seeds, ell=4, method=4)
     assert spray_select.launches == 0  # CPU tensors never launch the kernel
