@@ -39,14 +39,18 @@ Phases (the first that fails ends the run with a nonzero exit):
    run teacher-forced with the attention kernels' plain versions; logits
    and tokens must agree as closely as bf16 rounding through 36 layers
    allows (`FULL_RMS_TOL`, `FULL_MAX_TOL`); the prefill must launch
-   `flash_attention` once a layer and copy no operand.  Phase 2 holds
+   `flash_attention` once a layer and the decode `flash_decode` once a
+   layer a step, neither copying an operand.  Phase 2 holds
    `flash_attention` (both routes: bf16 on the wgmma / TMA kernel, f32 on
    the CUDA-core kernel, each case printed with its route and the
    wrapper's aligning copies) and `flash_decode` to their plain versions
    (the CPU tests' shapes, a head dim of 20, a misaligned view, key counts
    that are not a multiple of the key tile, and the full-width prefill and
-   decode shapes) and times them beside the plain versions and
-   `scaled_dot_product_attention`.
+   decode shapes; for `flash_decode` also empty rows, the output bit-equal
+   to `normalise` of the partials, one launch a call, an int64 kv_len out
+   of [0, Sk], the model's stacked-cache slice read in place, a view copied
+   once, and three CUDA-graph replays of one call) and times them beside
+   the plain versions and `scaled_dot_product_attention`.
 
 Each path of phases 4-7 runs with the kernels' launch counts set to 0
 just before it and read just after; a kernel row's ``launches`` is its
@@ -86,6 +90,7 @@ from repro_torch.kernels.flash_decode import (  # noqa: E402
     flash_decode_plain,
     normalise,
 )
+from repro_torch.kernels.flash_decode import plan as decode_plan  # noqa: E402
 from repro_torch.kernels.lt_encode import as_int32_bits, lt_encode, lt_encode_plain  # noqa: E402
 from repro_torch.launch.serve import generate, prompts  # noqa: E402
 from repro_torch.models import model as M  # noqa: E402
@@ -687,6 +692,52 @@ def _decode_inputs(g, B, H, KVH, Sk, D, dtype, dev):
     return q, k, v, kv_len
 
 
+def _decode_edges(g, dev):
+    """flash_decode's cases beyond DECODE_CASES; returns how many: an int64
+    kv_len out of [0, Sk]; the model's layer slice of a stacked cache (read
+    in place) and a view TMA cannot read (one counted copy); three CUDA-graph
+    replays of one call (the arrival counters reset)."""
+    q, k, v, _ = _decode_inputs(g, 4, 8, 2, 300, 64, torch.bfloat16, dev)
+    kv_len = torch.tensor([-5, 400, 2**40, 77], dtype=torch.int64, device=dev)
+    got = flash_decode(q, k, v, kv_len, return_lse=True)
+    for a, b in zip(got, flash_decode_plain(q, k, v, kv_len.clamp(0, 300))):
+        _check_close(a, b, 2e-5, "flash_decode, int64 kv_len out of [0, Sk]")
+    if not (got[1][0] == -1e30).all() or got[2][0].any():
+        raise AssertionError("flash_decode: a negative kv_len is not an empty row")
+    cfg = get_config(DENSE_ARCH)
+    B, H, KVH, D = DENSE_BATCH, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    cache = _randn(g, (3, B, 200, KVH, D), torch.bfloat16, dev)
+    q = _randn(g, (B, H, D), torch.bfloat16, dev)
+    kv_len = torch.tensor([200, 3, 150, 64], dtype=torch.int32, device=dev)
+    flat = _randn(g, (cache[0].numel() + 1,), torch.bfloat16, dev)
+    views = {"stacked-cache slice": (cache[1], cache[2], 0),
+             "k 2 bytes past a 16-byte boundary": (flat[1:].view(cache[0].shape), cache[2], 1)}
+    for name, (k, v, copies) in views.items():
+        before = flash_decode.copies
+        got = flash_decode(q, k, v, kv_len, return_lse=True)
+        for a, b in zip(got, flash_decode_plain(q, k, v, kv_len)):
+            _check_close(a, b, 2e-5, f"flash_decode, {name}")
+        if flash_decode.copies - before != copies:
+            raise AssertionError(f"flash_decode, {name}: {flash_decode.copies - before} copies, "
+                                 f"expected {copies}")
+        print(f"[kernels] flash_decode {name}: plan {decode_plan(k, v)}, copies {copies}")
+    q, k, v, kv_len = _decode_inputs(g, B, H, KVH, DENSE_PROMPT + DENSE_GEN, D, torch.bfloat16,
+                                     dev)
+    kv_len = kv_len.to(torch.int64)
+    eager = flash_decode(q, k, v, kv_len)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = flash_decode(q, k, v, kv_len)
+    for _ in range(3):
+        graph.replay()
+        torch.cuda.synchronize()
+        if not torch.equal(out, eager):
+            raise AssertionError("flash_decode: a graph replay differs from the eager call")
+    print("[kernels] flash_decode: 3 graph replays equal the eager call bit for bit")
+    return 4
+
+
 def phase_flash_decode(dev):
     """flash_decode against its plain version; returns the kernel's row."""
     g = torch.Generator(device=dev).manual_seed(3)
@@ -700,15 +751,22 @@ def phase_flash_decode(dev):
             if B > 2:
                 kv_len[1] = 1
             what = f"flash_decode {dtype} {(B, H, KVH, Sk, D)} kv_len {kv_len.tolist()}"
+            before = flash_decode.launches
             o, m, l = flash_decode(q, k, v, kv_len, return_lse=True)
+            out = flash_decode(q, k, v, kv_len)
             po, pm, pl = flash_decode_plain(q, k, v, kv_len)
             torch.cuda.synchronize()
             for got, want in ((o, po), (m, pm), (l, pl)):
                 _check_close(got, want, 2e-5, what)
-            if B > 1 and (not (m[0] == -1e30).all() or l[0].any()):
-                raise AssertionError(f"{what}: an empty row's (m, l) is not (-1e30, 0)")
-            _check_close(flash_decode(q, k, v, kv_len), normalise(po, pl, dtype), tol, what)
+            if B > 1 and (not (m[0] == -1e30).all() or l[0].any() or o[0].any()):
+                raise AssertionError(f"{what}: an empty row's (m, l, o) is not (-1e30, 0, 0)")
+            _check_close(out, normalise(po, pl, dtype), tol, what)
+            if not torch.equal(out, normalise(o, l, dtype)):
+                raise AssertionError(f"{what}: the output is not `normalise` of the partials")
+            if flash_decode.launches != before + 2:
+                raise AssertionError(f"{what}: {flash_decode.launches - before} launches, 2 calls")
             checked += 1
+    checked += _decode_edges(g, dev)
     # the main path's decode shape: the cache of 2,048 + 64 slots, all valid
     cfg = get_config(DENSE_ARCH)
     B, Sk, H, KVH, D = (DENSE_BATCH, DENSE_PROMPT + DENSE_GEN, cfg.n_heads, cfg.n_kv_heads,
@@ -739,8 +797,10 @@ def phase_flash_decode(dev):
     bound_by = "bytes" if t_bytes >= t_ops else "operations"
     print(f"[kernels] flash_decode [B {B}, H {H}, KVH {KVH}, Sk {Sk}, D {D}, bf16, kv_len {Sk}]: "
           f"{nbytes} B -> {t_bytes:.6f} ms, {ops} flops -> {t_ops:.6f} ms; kernel "
-          f"{graphed['kernel']:.6f} ms, plain {graphed['plain']:.6f} ms, sdpa "
-          f"{graphed['sdpa']:.6f} ms, bound {max(t_bytes, t_ops):.6f} ms ({bound_by})")
+          f"{graphed['kernel']:.6f} ms ({nbytes / graphed['kernel'] / 1e6:.1f} GB/s against "
+          f"{HBM_BYTES_PER_S / 1e9:.0f}, {100 * max(t_bytes, t_ops) / graphed['kernel']:.1f}% of "
+          f"the bound), plain {graphed['plain']:.6f} ms, sdpa {graphed['sdpa']:.6f} ms, bound "
+          f"{max(t_bytes, t_ops):.6f} ms ({bound_by})")
     return dict(name="flash_decode", route="cuda",
                 source="src/repro_torch/kernels/csrc/flash_decode.cu",
                 replaces="src/repro/kernels/flash_decode.py:78", launches=0,
@@ -812,16 +872,19 @@ def phase_dense(dev, rows):
     flash_attention.launches = 0
     flash_attention.copies = 0
     flash_decode.launches = 0
+    flash_decode.copies = 0
     run = generate(params, cfg, tokens, DENSE_GEN)
     launches = (flash_attention.launches, flash_decode.launches)
     copies = flash_attention.copies
+    decode_copies = flash_decode.copies
     peak = torch.cuda.max_memory_allocated()
     steps = DENSE_GEN - 1
     want = (cfg.n_layers, cfg.n_layers * steps)
     if launches != want:
         raise AssertionError(f"full width: launches {launches}, expected {want}")
-    if copies != 0:
-        raise AssertionError(f"full width: flash_attention copied {copies} operands")
+    if copies != 0 or decode_copies != 0:
+        raise AssertionError(f"full width: flash_attention copied {copies} operands, "
+                             f"flash_decode {decode_copies}")
     rows["flash_attention"]["launches"], rows["flash_decode"]["launches"] = launches
     if not bool(torch.isfinite(run.logits).all()):
         raise AssertionError("full width: non-finite logits")
@@ -833,7 +896,7 @@ def phase_dense(dev, rows):
           f"decode {run.decode_s * 1e3 / steps:.4f} ms per step "
           f"({DENSE_BATCH * steps / run.decode_s:.1f} tok/s), peak memory {peak} B; "
           f"launches flash_attention {launches[0]} ({copies} aligning copies), flash_decode "
-          f"{launches[1]}")
+          f"{launches[1]} ({decode_copies} copies)")
     print(f"[dense] first generated tokens: {run.tokens[:, :8].tolist()}")
     run.cache = None
     plain = generate(params, cfg, tokens, DENSE_GEN, plain=True, forced=run.tokens)

@@ -3,8 +3,9 @@
 Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled by
 ``nvcc`` for ``sm_90a`` into ``build/repro_torch_kernels/lib<name>.so`` at
 the repository root (git-ignored), then loaded with ctypes.  A library is
-rebuilt when its source is newer than the built file.  Nothing is built
-when a module is imported: only a launch on a CUDA tensor calls `load`.
+rebuilt when its source, or a shared header ``csrc/*.cuh``, is newer than
+the built file.  Nothing is built when a module is imported: only a
+launch on a CUDA tensor calls `load`.
 """
 from __future__ import annotations
 
@@ -19,8 +20,8 @@ __all__ = ["CSRC", "BUILD_DIR", "NVCC_FLAGS", "load", "build_all"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
-# -ldl: flash_attention.cu takes cuTensorMapEncodeTiled from the loaded
-# driver with dlopen, which glibc before 2.34 keeps in libdl
+# -ldl: sm90.cuh takes cuTensorMapEncodeTiled from the loaded libcuda.so.1
+# with dlopen, which glibc before 2.34 keeps in libdl
 NVCC_FLAGS = ("-O3", "-gencode=arch=compute_90a,code=sm_90a", "-std=c++17",
               "-shared", "-Xcompiler", "-fPIC", "-fmad=false", "-ldl")
 
@@ -41,7 +42,8 @@ def _nvcc() -> str:
 def _compile(name: str) -> subprocess.Popen | None:
     src = CSRC / f"{name}.cu"
     out = BUILD_DIR / f"lib{name}.so"
-    if out.exists() and out.stat().st_mtime >= src.stat().st_mtime:
+    newest = max(f.stat().st_mtime for f in (src, *CSRC.glob("*.cuh")))
+    if out.exists() and out.stat().st_mtime >= newest:
         return None
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     cmd = [_nvcc(), *NVCC_FLAGS, "-Xptxas", "-v", "-o", str(out), str(src)]

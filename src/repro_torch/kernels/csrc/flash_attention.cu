@@ -53,12 +53,13 @@
 // 0.139 ms at the 989 TFLOP/s bf16 tensor-core rate, against about 168 MB
 // of q, k, v and o (0.050 ms at 3.35 TB/s).
 #include <cstdint>
-#include <cuda.h>
 #include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <dlfcn.h>
+
+#include "sm90.cuh"
 
 namespace {
+
+using namespace sm90;
 
 constexpr int kBQ = 128;                       // query rows per block
 constexpr int kConsumers = 2;                  // warpgroups of 64 query rows
@@ -79,11 +80,6 @@ struct Tiles {
   static constexpr int kSmem = 1024 + kQBytes + 2 * kStages * kKVBytes + kBarBytes;
 };
 
-// which tensor-map dimension (1..3) holds the sequence, head and batch axis
-struct MapAxes {
-  int s, h, b;
-};
-
 struct Params {
   __nv_bfloat16* o;
   long long o_b, o_h, o_s;  // element strides of o; its D stride is 1
@@ -95,55 +91,6 @@ struct Params {
 };
 
 // ---------------------------------------------------------------- PTX helpers
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
-               "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
-}
-
-// wait for the completion of the barrier's phase of parity `parity`
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done = 0;
-  while (!done) {
-    asm volatile(
-        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-  }
-}
-
-// one box of a 4-d tensor map into shared memory, completing on `bar`
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, uint32_t bar,
-                                         int c0, int c1, int c2, int c3) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
-      : "memory");
-}
-
-// a box at column d0, sequence row `row`, head `head`, batch `b`
-__device__ __forceinline__ void tma_load_rows(uint32_t dst, const CUtensorMap* map,
-                                              MapAxes ax, uint32_t bar, int d0, int row,
-                                              int head, int b) {
-  auto at = [&](int dim) { return ax.s == dim ? row : ax.h == dim ? head : b; };
-  tma_load(dst, map, bar, d0, at(1), at(2), at(3));
-}
-
 // A wgmma shared-memory descriptor for 128-byte swizzled rows: start address,
 // leading and stride byte offsets (in 16-byte units), layout 1 = 128B swizzle.
 // K-major operands (Q, K): 8-row groups 1024 bytes apart, LBO unused.
@@ -564,78 +511,6 @@ flash_attention_sm90(const __grid_constant__ CUtensorMap tq,
 }
 
 // ---------------------------------------------------------------- host side
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled is a driver-API call: take it from the driver that
-// PyTorch has already loaded, so the library links against the runtime only
-EncodeTiled encoder() {
-  static const EncodeTiled fn = [] {
-    void* lib = dlopen("libcuda.so.1", RTLD_LAZY | RTLD_NOLOAD);
-    if (lib == nullptr) lib = dlopen("libcuda.so.1", RTLD_LAZY);
-    return lib == nullptr ? nullptr
-                          : reinterpret_cast<EncodeTiled>(dlsym(lib, "cuTensorMapEncodeTiled"));
-  }();
-  return fn;
-}
-
-constexpr int kErrNoEncoder = 1001;    // cuTensorMapEncodeTiled not found
-constexpr int kErrMisaligned = 1002;   // base or a stride not a multiple of 16 bytes
-constexpr int kErrEncode = 1100;       // + the CUresult of a failed encode
-
-// A 4-d tensor map over a bf16 [B, heads, S, D] operand with element strides
-// st = (b, head, seq) and a unit D stride: dimension 0 is D, dimensions 1..3
-// the other axes in ascending stride order (size-1 axes last), boxes of 64
-// columns x `rows` sequence rows, 128-byte swizzle, zero fill out of bounds.
-int make_map(CUtensorMap* map, MapAxes* axes, const void* ptr, int B, int heads, int S, int D,
-             const long long* st, int rows) {
-  EncodeTiled encode = encoder();
-  if (encode == nullptr) return kErrNoEncoder;
-  if (reinterpret_cast<uintptr_t>(ptr) % 16 != 0) return kErrMisaligned;
-  struct Axis {
-    long long stride;
-    int size, which;  // which: 0 seq, 1 head, 2 batch
-  } ax[3] = {{st[2], S, 0}, {st[1], heads, 1}, {st[0], B, 2}};
-  auto before = [](const Axis& x, const Axis& y) {
-    if ((x.size == 1) != (y.size == 1)) return y.size == 1;
-    return x.stride < y.stride;
-  };
-  for (int i = 1; i < 3; ++i)
-    for (int j = i; j > 0 && before(ax[j], ax[j - 1]); --j) {
-      const Axis tmp = ax[j];
-      ax[j] = ax[j - 1];
-      ax[j - 1] = tmp;
-    }
-  cuuint64_t dims[4] = {static_cast<cuuint64_t>(D), 0, 0, 0};
-  cuuint64_t strides[3];
-  cuuint32_t box[4] = {64, 1, 1, 1};
-  const cuuint32_t unit[4] = {1, 1, 1, 1};
-  long long prev = 2LL * D;  // bytes spanned by the axes below
-  for (int i = 0; i < 3; ++i) {
-    long long bytes = 2LL * ax[i].stride;
-    if (ax[i].size == 1) bytes = (prev + 15) / 16 * 16;  // never stepped over
-    if (bytes % 16 != 0 || bytes <= 0) return kErrMisaligned;
-    dims[i + 1] = static_cast<cuuint64_t>(ax[i].size);
-    strides[i] = static_cast<cuuint64_t>(bytes);
-    prev = bytes * ax[i].size;
-    if (ax[i].which == 0) {
-      box[i + 1] = static_cast<cuuint32_t>(rows);
-      axes->s = i + 1;
-    } else if (ax[i].which == 1) {
-      axes->h = i + 1;
-    } else {
-      axes->b = i + 1;
-    }
-  }
-  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr),
-                            dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? 0 : kErrEncode + static_cast<int>(r);
-}
-
 template <int DP>
 int launch(const void* q, const void* k, const void* v, void* o, const long long* st, int B,
            int H, int KVH, int Sq, int Sk, int D, float scale, int causal, int window,
@@ -643,9 +518,9 @@ int launch(const void* q, const void* k, const void* v, void* o, const long long
   using T = Tiles<DP>;
   CUtensorMap tq, tk, tv;
   Params p{};
-  int err = make_map(&tq, &p.qa, q, B, H, Sq, D, st, kBQ);
-  if (err == 0) err = make_map(&tk, &p.ka, k, B, KVH, Sk, D, st + 3, T::BK);
-  if (err == 0) err = make_map(&tv, &p.va, v, B, KVH, Sk, D, st + 6, T::BK);
+  int err = make_map(&tq, &p.qa, q, 2, B, H, Sq, D, st, kBQ);
+  if (err == 0) err = make_map(&tk, &p.ka, k, 2, B, KVH, Sk, D, st + 3, T::BK);
+  if (err == 0) err = make_map(&tv, &p.va, v, 2, B, KVH, Sk, D, st + 6, T::BK);
   if (err != 0) return err;
   p.o = static_cast<__nv_bfloat16*>(o);
   p.o_b = st[9];

@@ -37,13 +37,14 @@ import math
 
 import torch
 
+from repro_torch.kernels import tma
+
 __all__ = ["flash_attention", "flash_attention_plain", "plan", "Plan", "ROUTES"]
 
 # the kernel each dtype takes on the card, and the source it is built from
 ROUTES = {torch.bfloat16: "wgmma", torch.float32: "cuda-core"}
 _SOURCES = {"wgmma": "flash_attention", "cuda-core": "flash_attention_f32"}
 MAX_HEAD_DIM = 256
-TMA_ALIGN = 16  # bytes: a tensor map's base and strides
 
 
 def _scale(scale, D: int) -> float:
@@ -104,34 +105,18 @@ class Plan:
     copy: tuple
 
 
-def _tma_ready(t: torch.Tensor) -> bool:
-    """TMA can read ``t`` as it is: unit last stride, 16-byte-aligned base,
-    every other stride of an axis longer than one a positive multiple of 16
-    bytes."""
-    if t.stride(-1) != 1 or t.data_ptr() % TMA_ALIGN:
-        return False
-    size = t.element_size()
-    return all(n == 1 or (s > 0 and (s * size) % TMA_ALIGN == 0)
-               for n, s in zip(t.shape[:-1], t.stride()[:-1]))
-
-
 def plan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> Plan:
     """The route by dtype and the operands to copy."""
     route = ROUTES[q.dtype]
     if route == "wgmma":
-        return Plan(route, tuple(not _tma_ready(t) for t in (q, k, v)))
+        return Plan(route, tuple(not tma.ready(t) for t in (q, k, v)))
     return Plan(route, tuple(t.stride(-1) != 1 for t in (q, k, v)))
 
 
 def _aligned_copy(t: torch.Tensor, route: str) -> torch.Tensor:
     """A contiguous copy; on the wgmma route with D padded with zeros to a
     multiple of 8, so that every stride is a multiple of 16 bytes."""
-    if route != "wgmma":
-        return t.contiguous()
-    D = t.shape[-1]
-    out = torch.zeros((*t.shape[:-1], -(-D // 8) * 8), dtype=t.dtype, device=t.device)
-    out[..., :D] = t
-    return out[..., :D]
+    return tma.aligned_copy(t) if route == "wgmma" else t.contiguous()
 
 
 @functools.cache

@@ -7,30 +7,48 @@ h reads kv head ``h // (H // KVH)``), masked to the valid prefix
 ``kv_len[b]``.  The kernel returns the TPU kernel's un-normalised f32
 partials ``(o, m, l)``: ``m`` the max scaled logit (-1e30 for a row that
 sees no slot), ``l`` the sum of ``exp(s - m)``, ``o`` the matching sum of
-values.  `flash_decode` normalises them as the JAX package's
-`ops.flash_decode` does, ``o / where(l > 0, l, 1)`` cast to q's type, or
-returns them with ``return_lse=True``; `lse_combine` merges partials of
-cache shards.
+values.  `flash_decode` returns the output that the JAX package's
+`ops.flash_decode` returns, ``o / where(l > 0, l, 1)`` cast to q's type
+(`normalise`), or the partials with ``return_lse=True``; `lse_combine`
+merges partials of cache shards.
 
-`flash_decode` launches the CUDA kernel (``csrc/flash_decode.cu``) on CUDA
-tensors and runs `flash_decode_plain` on CPU tensors; a CUDA tensor never
-falls back to the plain version.  Any Sk and kv_len are taken (the TPU
-kernel needs Sk to be a multiple of its tile), groups up to 16 and
-``D <= 256``.
+`flash_decode` runs `flash_decode_plain` on CPU tensors.  On CUDA tensors
+it launches the Hopper kernel (``csrc/flash_decode.cu``) once, and nothing
+else: the kernel reads kv_len as int32 or int64 and clamps it to
+``[0, Sk]``, reads q through its strides, merges the cache ranges of its
+persistent blocks (`decode_splits`) and normalises the output itself.  A
+CUDA tensor never falls back to the plain version.  Any Sk and kv_len are
+taken (the TPU kernel needs Sk to be a multiple of its tile), groups up to
+16 and ``D <= 256``, f32 and bf16.
+
+The kernel reads k and v with TMA through tensor maps, which need a
+16-byte-aligned base and strides that are multiples of 16 bytes (`plan`);
+the model's per-layer slices of its stacked ``[n, B, L, KVH, D]`` caches
+meet that.  A view that does not is first copied into a padded contiguous
+buffer, and `flash_decode.copies` counts it.  The blocks that share a
+(b, kv head) pair meet on a per-device buffer of arrival counters that the
+wrapper zeroes once and the kernel leaves zeroed: calls on two CUDA streams
+at once are not supported, and the first call on a device must not be
+inside a CUDA-graph capture (it allocates the counters).
 """
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
 import math
 
 import torch
 
-__all__ = ["flash_decode", "flash_decode_plain", "normalise", "lse_combine", "decode_splits"]
+from repro_torch.kernels import tma
+
+__all__ = ["flash_decode", "flash_decode_plain", "normalise", "lse_combine", "decode_splits",
+           "plan", "Cut"]
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _MASKED = -1e30
-_SLOTS_PER_TILE = 64  # the kernel's tile of cache slots
+SLOTS_PER_TILE = 64  # the kernel's tile of cache slots
+MAX_BLOCKS = 256  # the kernel's limit on its persistent blocks
 MAX_GROUP, MAX_HEAD_DIM = 16, 256
 
 
@@ -100,14 +118,48 @@ def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
-def decode_splits(B: int, KVH: int, Sk: int, sms: int) -> tuple[int, int]:
-    """``(nsplit, split_len)``: cut the cache's Sk slots into ranges of a
-    whole number of 64-slot tiles, enough that the ``nsplit * B * KVH``
-    blocks cover the card's SMs twice."""
-    tiles = -(-Sk // _SLOTS_PER_TILE)
-    want = max(1, min(tiles, -(-2 * sms // (B * KVH))))
-    split_len = -(-tiles // want) * _SLOTS_PER_TILE
-    return -(-Sk // split_len), split_len
+@dataclasses.dataclass(frozen=True)
+class Cut:
+    """The kernel's cut of the cache: the ``pairs`` (b, kv head) pairs'
+    tiles of 64 slots, laid end to end, cut into ``blocks`` ranges."""
+
+    pairs: int
+    tiles_per_pair: int
+    blocks: int
+
+    def ranges(self) -> list:
+        """Each block's ``[start, end)`` in the flat tile range."""
+        total = self.pairs * self.tiles_per_pair
+        return [(i * total // self.blocks, (i + 1) * total // self.blocks)
+                for i in range(self.blocks)]
+
+
+def decode_splits(B: int, KVH: int, Sk: int, sms: int) -> Cut:
+    """One persistent block per SM (fewer when there are fewer tiles), each
+    streaming a range of whole tiles; the ranges' lengths differ by at most
+    one.  The cut is made on Sk: kv_len lives on the device."""
+    tiles = -(-Sk // SLOTS_PER_TILE)
+    return Cut(B * KVH, tiles, max(1, min(sms, MAX_BLOCKS, B * KVH * tiles)))
+
+
+def plan(k: torch.Tensor, v: torch.Tensor) -> tuple:
+    """Whether the wrapper copies k and v first: TMA cannot read them."""
+    return tuple(not tma.ready(t) for t in (k, v))
+
+
+_COUNTERS: dict = {}
+
+
+def _counters(dev: torch.device, pairs: int) -> torch.Tensor:
+    """The device's zeroed arrival counters, at least ``pairs`` of them."""
+    buf = _COUNTERS.get(dev.index)
+    if buf is None or buf.numel() < pairs:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("flash_decode: call it once outside CUDA-graph capture first "
+                               "(it allocates its counters)")
+        buf = torch.zeros(max(pairs, 4096), dtype=torch.int32, device=dev)
+        _COUNTERS[dev.index] = buf
+    return buf
 
 
 @functools.cache
@@ -116,44 +168,51 @@ def _launcher():
     from repro_torch.kernels.build import load
 
     fn = load("flash_decode").flash_decode_launch
-    fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 6
-                   + [ctypes.c_void_p, ctypes.c_float, ctypes.c_int, ctypes.c_int,
-                      ctypes.c_void_p])
+    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] + [ctypes.c_void_p] * 6
+                   + [ctypes.c_int] * 6 + [ctypes.c_void_p, ctypes.c_float, ctypes.c_int,
+                                           ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
 
 
-def _kernel(q, k, v, kv_len, scale):
+def _kernel(q, k, v, kv_len, scale, return_lse):
     fn = _launcher()
     dev = q.device
-    q = q.contiguous()
-    k = k if k.stride(-1) == 1 else k.contiguous()
-    v = v if v.stride(-1) == 1 else v.contiguous()
-    lens = kv_len.clamp(-2**31, 2**31 - 1).to(torch.int32).contiguous()
+    copy = plan(k, v)
+    k, v = (tma.aligned_copy(t) if c else t for t, c in zip((k, v), copy))
+    flash_decode.copies += sum(copy)
     B, H, D = q.shape
     Sk, KVH = k.shape[1], k.shape[2]
-    nsplit, split_len = decode_splits(B, KVH, Sk, _sm_count(dev.index or 0))
-    o = torch.empty((B, H, D), dtype=torch.float32, device=dev)
-    m = torch.empty((B, H), dtype=torch.float32, device=dev)
-    l = torch.empty((B, H), dtype=torch.float32, device=dev)
-    work = (torch.empty(nsplit * B * H * (D + 2), dtype=torch.float32, device=dev)
-            if nsplit > 1 else None)
-    strides = (ctypes.c_longlong * 6)(*(t.stride(i) for t in (k, v) for i in range(3)))
+    cut = decode_splits(B, KVH, Sk, _sm_count(dev.index))
+    count = _counters(dev, cut.pairs)
+    work = torch.empty((cut.pairs + cut.blocks) * (H // KVH) * (D + 2), dtype=torch.float32,
+                       device=dev)
+    if return_lse:
+        res = (torch.empty((B, H, D), dtype=torch.float32, device=dev),
+               torch.empty((B, H), dtype=torch.float32, device=dev),
+               torch.empty((B, H), dtype=torch.float32, device=dev))
+        ptrs = [t.data_ptr() for t in res] + [None]
+    else:
+        res = torch.empty((B, H, D), dtype=q.dtype, device=dev)
+        ptrs = [None, None, None, res.data_ptr()]
+    strides = (ctypes.c_longlong * 9)(*q.stride(), *(t.stride(i) for t in (k, v)
+                                                     for i in (0, 2, 1)))
     stream = torch.cuda.current_stream(dev).cuda_stream
-    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), lens.data_ptr(), o.data_ptr(),
-             m.data_ptr(), l.data_ptr(), 0 if work is None else work.data_ptr(),
-             _DTYPES[q.dtype], B, H, KVH, Sk, D, strides, scale, nsplit, split_len, stream)
+    kv_len = kv_len.contiguous()
+    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), kv_len.data_ptr(),
+             int(kv_len.dtype == torch.int64), *ptrs, work.data_ptr(), count.data_ptr(),
+             _DTYPES[q.dtype], B, H, KVH, Sk, D, strides, scale, cut.blocks, stream)
     if err != 0:
-        raise RuntimeError(f"flash_decode launch failed with CUDA error {err}")
+        raise RuntimeError(f"flash_decode launch failed with error {err}")
     flash_decode.launches += 1
-    return o, m, l
+    return res
 
 
 def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, kv_len: torch.Tensor, *,
                  scale: float | None = None, return_lse: bool = False):
     """Decode attention ``[B, H, D]`` in q's type, or the f32 partials
-    ``(o, m, l)`` with ``return_lse=True``; launches the CUDA kernel for
-    CUDA tensors."""
+    ``(o, m, l)`` with ``return_lse=True``; one kernel launch for CUDA
+    tensors."""
     _check(q, k, v, kv_len)
     dev = q.device
     D = q.shape[-1]
@@ -161,13 +220,11 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, kv_len: torc
     same = k.device == dev and v.device == dev and kv_len.device == dev
     if dev.type == "cpu" and same:
         o, m, l = flash_decode_plain(q, k, v, kv_len, scale=scale)
-    elif dev.type == "cuda" and same:
-        o, m, l = _kernel(q, k, v, kv_len, scale)
-    else:
-        raise ValueError("flash_decode: all tensors must be on one CUDA device or the CPU")
-    if return_lse:
-        return o, m, l
-    return normalise(o, l, q.dtype)
+        return (o, m, l) if return_lse else normalise(o, l, q.dtype)
+    if dev.type == "cuda" and same:
+        return _kernel(q, k, v, kv_len, scale, return_lse)
+    raise ValueError("flash_decode: all tensors must be on one CUDA device or the CPU")
 
 
 flash_decode.launches = 0
+flash_decode.copies = 0

@@ -23,7 +23,10 @@ import jax.numpy as jnp  # noqa: E402
 
 from repro.kernels import ops, ref  # noqa: E402
 from repro_torch import convert  # noqa: E402
+from repro_torch.configs.registry import get_config  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
+from repro_torch.kernels import flash_decode as fd  # noqa: E402
+from repro_torch.kernels import tma  # noqa: E402
 from repro_torch.kernels.flash_attention import flash_attention  # noqa: E402
 from repro_torch.kernels.flash_decode import (  # noqa: E402
     decode_splits,
@@ -31,6 +34,7 @@ from repro_torch.kernels.flash_decode import (  # noqa: E402
     flash_decode_plain,
     lse_combine,
 )
+from repro_torch.models.transformer import _index, init_stack_cache  # noqa: E402
 
 TOL = {jnp.float32: 2e-5, jnp.bfloat16: 2e-2}
 
@@ -338,14 +342,149 @@ def test_lse_combine_of_empty_shards_is_zero():
 
 
 @pytest.mark.parametrize("B,KVH,Sk,sms", [(4, 8, 2112, 132), (2, 2, 56, 132), (1, 1, 1, 132),
-                                          (64, 8, 4096, 132), (1, 8, 100000, 132)])
+                                          (64, 8, 4096, 132), (1, 8, 100000, 132),
+                                          (3, 2, 1024, 7), (2, 8, 300, 1000)])
 def test_decode_splits_cover_the_cache(B, KVH, Sk, sms):
-    """The kernel's cut of the cache: whole 64-slot tiles, ranges that cover
-    Sk with none empty, and at most two blocks per SM where Sk allows."""
-    nsplit, split_len = decode_splits(B, KVH, Sk, sms)
-    assert split_len % 64 == 0 and nsplit >= 1
-    assert (nsplit - 1) * split_len < Sk <= nsplit * split_len
-    assert nsplit == 1 or nsplit * B * KVH >= 2 * sms or split_len == 64
+    """The kernel's cut of the cache: each (b, kv head)'s Sk slots in whole
+    64-slot tiles, the pairs' tiles laid end to end and cut into one range
+    per block, covering every tile exactly once, with lengths that differ by
+    at most one; a block per SM where there are enough tiles (at the decode
+    shape every SM of an H100 streams 8 tiles); the kernel's formula for
+    the range that holds a tile (`block_of` in the source) finds it."""
+    cut = decode_splits(B, KVH, Sk, sms)
+    assert cut.pairs == B * KVH
+    assert (cut.tiles_per_pair - 1) * 64 < Sk <= cut.tiles_per_pair * 64
+    total = cut.pairs * cut.tiles_per_pair
+    ranges = cut.ranges()
+    assert len(ranges) == cut.blocks == min(sms, fd.MAX_BLOCKS, total)
+    assert ranges[0][0] == 0 and ranges[-1][1] == total
+    assert all(a[1] == b[0] for a, b in zip(ranges, ranges[1:]))
+    sizes = [b - a for a, b in ranges]
+    assert min(sizes) >= 1 and max(sizes) - min(sizes) <= 1
+    for t in range(0, total, max(1, total // 4000)):
+        a, b = ranges[((t + 1) * cut.blocks - 1) // total]
+        assert a <= t < b
+    if (B, KVH, Sk, sms) == (4, 8, 2112, 132):
+        assert cut.blocks == 132 and set(sizes) == {8}
+
+
+def test_decode_plan_reads_the_model_cache_in_place():
+    """The model's per-layer slices of its stacked ``[n, B, L, KVH, D]``
+    caches are read in place at the zoo's widths (qwen3-8b's head dim of
+    128, h2o-danube's 120); a view TMA cannot read is marked for one copy,
+    and the padded copy needs none."""
+    for arch in ("qwen3-8b", "h2o-danube-3-4b"):
+        cfg = get_config(arch)
+        cache = init_stack_cache(cfg, 2, 24, "cpu")
+        for n in (0, cfg.n_periods - 1):
+            layer = _index(cache, n)["sub0"]
+            assert fd.plan(layer["k"], layer["v"]) == (False, False)
+    k = torch.zeros((2, 24, 4, 64), dtype=torch.bfloat16)
+    flat = torch.zeros(k.numel() + 1, dtype=torch.bfloat16)
+    off = flat[1:].view(k.shape)  # 2 bytes past a 16-byte boundary
+    assert off.data_ptr() % 16 == 2
+    assert fd.plan(off, k) == (True, False)
+    narrow = torch.zeros((2, 24, 4, 20), dtype=torch.bfloat16)  # 40-byte rows
+    assert fd.plan(k, narrow) == (False, True)
+    strided = torch.zeros((2, 24, 64, 4), dtype=torch.bfloat16).transpose(2, 3)
+    assert fd.plan(strided, strided) == (True, True)
+    for t in (off, narrow, strided, torch.zeros((2, 24, 4, 6))):
+        c = tma.aligned_copy(t)
+        assert torch.equal(c, t) and fd.plan(c, c) == (False, False)
+    assert fd.plan(torch.zeros((2, 24, 4, 20)), narrow.float()) == (False, False)
+
+
+def _merge(states):
+    """``(o, m, l)`` states merged in order as `lse_combine` does: M = max m,
+    o = sum o exp(m - M), l likewise."""
+    mm = torch.stack([m for _, m, _ in states]).amax(0)
+    o, l = 0.0, 0.0
+    for o_k, m_k, l_k in states:
+        w = torch.exp(m_k - mm)
+        o = o + o_k * w[..., None]
+        l = l + l_k * w
+    return o, mm, l
+
+
+def _emulate_decode(q, k, v, kv_len, *, sms, elem):
+    """The kernel's arithmetic on the CPU, for a cache of ``elem``-byte
+    values: the cut into block ranges of 64-slot tiles (`decode_splits`); in
+    each segment (a block's piece of one (b, kv head) pair) warps that take
+    the group's heads kH at a time (4; 2 when a lane holds 8 columns) and the
+    tile's slots in equal shares, each running an online softmax over its
+    slots in batches of 8: q scaled in f32 first, scores in f32, masked to
+    -1e30, exp, p in f32, ``acc * alpha + p . v``; the warps' states merged
+    in warp order, then a pair's segments in range order.  Returns the f32
+    partials ``(o, m, l)``.  A batch wholly past kv_len changes no state, so
+    it is computed here, where the kernel skips it."""
+    q, k, v = (torch.as_tensor(np.asarray(x, np.float32)) for x in (q, k, v))
+    B, H, D = q.shape
+    Sk, KVH = k.shape[1], k.shape[2]
+    G = H // KVH
+    box = 128 // elem
+    kH = 4 if -(-D // box) * box // 32 <= 4 else 2
+    n_hg = 1
+    while n_hg * kH < G:
+        n_hg *= 2
+    n_sg, spw = 8 // n_hg, 8 * n_hg  # warps a head has; slots of a tile a warp takes
+    cut = decode_splits(B, KVH, Sk, sms)
+    T = cut.tiles_per_pair
+    qf = (q * torch.tensor(np.float32(1 / np.sqrt(D)))).reshape(B, KVH, G, D)
+    masked = torch.tensor(-1e30)
+    segments = {}  # pair -> the segments' (o, m, l), in range order
+    for a, b in cut.ranges():
+        t = a
+        while t < b:
+            pair = t // T
+            end = min(b, (pair + 1) * T)
+            bi, kvh = divmod(pair, KVH)
+            n = int(np.clip(kv_len[bi], 0, Sk))
+            m = torch.full((G, n_sg), -1e30)  # one state per (head, warp)
+            l = torch.zeros((G, n_sg))
+            acc = torch.zeros((G, n_sg, D))
+            for tile in range(t - pair * T, end - pair * T):
+                for r0 in range(0, spw, 8):
+                    slots = tile * 64 + torch.arange(n_sg)[:, None] * spw + r0 + torch.arange(8)
+                    ok = slots < n
+                    kk, vv = (x[bi, slots.clamp(max=Sk - 1), kvh] for x in (k, v))
+                    s = torch.where(ok, torch.einsum("gd,wsd->gws", qf[bi, kvh], kk), masked)
+                    m_new = torch.maximum(m, s.amax(-1))
+                    alpha = torch.exp(m - m_new)
+                    p = torch.where(ok, torch.exp(s - m_new[..., None]), torch.tensor(0.0))
+                    l = l * alpha + p.sum(-1)
+                    acc = acc * alpha[..., None] + torch.einsum("gws,wsd->gwd", p, vv)
+                    m = m_new
+            segments.setdefault(pair, []).append(
+                _merge([(acc[:, w], m[:, w], l[:, w]) for w in range(n_sg)]))
+            t = end
+    o, mo, lo = torch.zeros((B, KVH, G, D)), torch.zeros((B, KVH, G)), torch.zeros((B, KVH, G))
+    for pair, parts in segments.items():
+        bi, kvh = divmod(pair, KVH)
+        o[bi, kvh], mo[bi, kvh], lo[bi, kvh] = _merge(parts)
+    return o.reshape(B, H, D), mo.reshape(B, H), lo.reshape(B, H)
+
+
+@pytest.mark.parametrize("dtype", [jnp.float32, jnp.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("B,H,KVH,S,D", [(3, 8, 2, 1024, 64), (2, 4, 4, 512, 128),
+                                         (1, 16, 2, 2048, 64), (4, 32, 8, 2112, 128),
+                                         (1, 16, 1, 300, 256)])
+def test_kernel_arithmetic_meets_the_f32_tolerance(B, H, KVH, S, D, dtype):
+    """The Hopper kernel's arithmetic (`_emulate_decode`: its range cut,
+    warps, batches and merge order), on `test_flash_decode_sweep`'s shapes,
+    the decode shape and a group of 16 at D 256 (2 heads a warp), gives the
+    Pallas kernel's and the reference's partials within 2e-5, on the
+    H100's 132 SMs and on 7 (ranges of many tiles and pairs)."""
+    q, k, v, kv_len = _decode_inputs(B * S + D, B, H, KVH, S, D, dtype)
+    pallas = _ref(ops.flash_decode, q, k, v, kv_len, backend="pallas", block_s=S,
+                  return_lse=True)
+    want = _ref(ref.flash_decode_ref, q, k, v, kv_len, return_lse=True)
+    out = _ref(ref.flash_decode_ref, q, k, v, kv_len)
+    for sms in (132, 7):
+        got = _emulate_decode(q, k, v, kv_len, sms=sms, elem=np.dtype(dtype).itemsize)
+        for g, p, w in zip(got, pallas, want):
+            _close(g, p, 2e-5)
+            _close(g, w, 2e-5)
+        _close(fd.normalise(got[0], got[2], _port(q).dtype), out, TOL[dtype])
 
 
 def test_flash_decode_plain_equals_split_partials_merged():

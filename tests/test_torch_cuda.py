@@ -119,11 +119,14 @@ def test_flash_attention_kernel_matches_plain(cuda, B, H, KVH, Sq, Sk, D, causal
 @pytest.mark.parametrize("B,H,KVH,Sk,D", [(3, 8, 2, 1024, 64), (2, 4, 4, 512, 128),
                                           (1, 16, 2, 2048, 64), (4, 32, 8, 2112, 128),
                                           (2, 4, 2, 56, 16), (2, 32, 8, 100, 120),
-                                          (1, 16, 1, 300, 256)])
+                                          (1, 16, 1, 300, 256), (2, 8, 2, 100, 120),
+                                          (3, 8, 2, 64, 64), (2, 32, 8, 4096, 128)])
 def test_flash_decode_kernel_matches_plain(cuda, B, H, KVH, Sk, D, dtype):
-    """(o, m, l) against the plain version, with kv_len 0, 1 and Sk among
-    the rows; one launch per call."""
-    from repro_torch.kernels.flash_decode import flash_decode, flash_decode_plain
+    """(o, m, l) against the plain version at 2e-5, with kv_len 0, 1 and Sk
+    among the rows, and the normalised output within test_kernels.py's
+    tolerance and bit-equal to `normalise` of the partials; one launch per
+    call."""
+    from repro_torch.kernels.flash_decode import flash_decode, flash_decode_plain, normalise
 
     g = torch.Generator(device=cuda).manual_seed(Sk + D)
     q = torch.randn((B, H, D), generator=g, device=cuda).to(dtype)
@@ -137,9 +140,104 @@ def test_flash_decode_kernel_matches_plain(cuda, B, H, KVH, Sk, D, dtype):
     before = flash_decode.launches
     got = flash_decode(q, k, v, kv_len, return_lse=True)
     assert flash_decode.launches == before + 1
-    for a, b in zip(got, flash_decode_plain(q, k, v, kv_len)):
+    plain = flash_decode_plain(q, k, v, kv_len)
+    for a, b in zip(got, plain):
+        torch.testing.assert_close(a, b, atol=2e-5, rtol=2e-5)
+    assert (got[1][0] == -1e30).all() and not got[2][0].any() and not got[0][0].any()
+    out = flash_decode(q, k, v, kv_len)
+    tol = 2e-5 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(out.float(), normalise(plain[0], plain[2], dtype).float(),
+                               atol=tol, rtol=tol)
+    assert torch.equal(out, normalise(got[0], got[2], dtype))
+
+
+def _decode_case(g, B, H, KVH, Sk, D, dtype, dev):
+    q = torch.randn((B, H, D), generator=g, device=dev).to(dtype)
+    k, v = (torch.randn((B, Sk, KVH, D), generator=g, device=dev).to(dtype) for _ in range(2))
+    return q, k, v
+
+
+@pytest.mark.cuda
+def test_flash_decode_clamps_an_int64_kv_len(cuda):
+    """kv_len as int64, below 0 and above Sk: the kernel clamps it to
+    [0, Sk] itself; a row below 0 is empty."""
+    from repro_torch.kernels.flash_decode import flash_decode, flash_decode_plain
+
+    g = torch.Generator(device=cuda).manual_seed(6)
+    q, k, v = _decode_case(g, 4, 8, 2, 300, 64, torch.bfloat16, cuda)
+    kv_len = torch.tensor([-5, 400, 2**40, 77], dtype=torch.int64, device=cuda)
+    got = flash_decode(q, k, v, kv_len, return_lse=True)
+    for a, b in zip(got, flash_decode_plain(q, k, v, kv_len.clamp(0, 300))):
         torch.testing.assert_close(a, b, atol=2e-5, rtol=2e-5)
     assert (got[1][0] == -1e30).all() and not got[2][0].any()
+
+
+@pytest.mark.cuda
+def test_flash_decode_reads_the_model_cache_in_place(cuda):
+    """A layer's slice of a stacked [n, B, L, KVH, D] cache is read with no
+    copy; a view 2 bytes past a 16-byte boundary is copied once, counted."""
+    from repro_torch.kernels.flash_decode import flash_decode, flash_decode_plain
+
+    g = torch.Generator(device=cuda).manual_seed(7)
+    cache = torch.randn((3, 4, 200, 8, 128), generator=g, device=cuda).bfloat16()
+    q = torch.randn((4, 32, 128), generator=g, device=cuda).bfloat16()
+    kv_len = torch.tensor([200, 3, 150, 64], dtype=torch.int32, device=cuda)
+    before = flash_decode.copies
+    got = flash_decode(q, cache[1], cache[2], kv_len, return_lse=True)
+    assert flash_decode.copies == before
+    for a, b in zip(got, flash_decode_plain(q, cache[1], cache[2], kv_len)):
+        torch.testing.assert_close(a, b, atol=2e-5, rtol=2e-5)
+    flat = torch.randn(cache[0].numel() + 1, generator=g, device=cuda).bfloat16()
+    k = flat[1:].view(cache[0].shape)
+    got = flash_decode(q, k, cache[2], kv_len, return_lse=True)
+    assert flash_decode.copies == before + 1
+    for a, b in zip(got, flash_decode_plain(q, k, cache[2], kv_len)):
+        torch.testing.assert_close(a, b, atol=2e-5, rtol=2e-5)
+
+
+@pytest.mark.cuda
+def test_flash_decode_graph_replays_are_identical(cuda):
+    """Three replays of one captured call give the same bits as an eager
+    call: the arrival counters are back at 0 after every launch."""
+    from repro_torch.kernels.flash_decode import flash_decode
+
+    g = torch.Generator(device=cuda).manual_seed(8)
+    q, k, v = _decode_case(g, 4, 32, 8, 2112, 128, torch.bfloat16, cuda)
+    kv_len = torch.full((4,), 2049, dtype=torch.int64, device=cuda)
+    eager = flash_decode(q, k, v, kv_len)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = flash_decode(q, k, v, kv_len)
+    for _ in range(3):
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, eager)
+
+
+@pytest.mark.cuda
+def test_flash_decode_is_one_kernel_a_call(cuda):
+    """On CUDA tensors a call is one device kernel and nothing else (no
+    clamp, cast, merge kernel or normalising pass), with an int64 kv_len."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels.flash_decode import flash_decode
+
+    g = torch.Generator(device=cuda).manual_seed(9)
+    q, k, v = _decode_case(g, 4, 32, 8, 2112, 128, torch.bfloat16, cuda)
+    kv_len = torch.full((4,), 2049, dtype=torch.int64, device=cuda)
+    flash_decode(q, k, v, kv_len)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            flash_decode(q, k, v, kv_len)
+            flash_decode(q, k, v, kv_len, return_lse=True)
+        torch.cuda.synchronize()
+    device = [e for e in prof.events() if str(e.device_type).endswith("CUDA")]
+    if not device:
+        pytest.skip("the profiler recorded no device activity here")
+    names = {e.name for e in device}
+    assert len(device) == 6 and all("flash_decode_sm90" in n for n in names), names
 
 
 @pytest.mark.cuda
