@@ -4,17 +4,25 @@
 
 Phases (the first that fails ends the run with a nonzero exit):
 
-1. Print the card's name and power limit, and build every CUDA kernel
-   from the sources in the checkout (one nvcc per source, in parallel).
+1. Print the card's name and power limit, build every CUDA kernel from
+   the sources in the checkout (one nvcc per source, in parallel), and
+   print ptxas's registers and spills for `spray_select` and `lt_encode`.
 2. Hold each kernel against its plain PyTorch version on the card: the
    `spray_select` kernel over every spray method x ell x path count, at
    131,072 decisions, plus ragged batches, path counts above 128 (129,
-   256, 1,000 and 20,000, which takes several passes over shared memory)
-   and the main path's row shape;
-   the `lt_encode` kernel over the reference tests' shapes, ragged shapes
-   with negative and out-of-range indices, and the full-width message.
-   Results must be equal; each kernel's time is printed beside the plain
-   version's.
+   256, 1,000 and 20,000, which one pass of shared memory holds) and the
+   main path's row shape; its row-base form (`spray_select_rows`) over
+   every method x ell 8 / 10 / 16 x n 1 / 16 / 128 / 20,000, with row
+   bases that wrap past 2**32, int64 and int32 inputs and 0-d seeds;
+   one device operation a call for the sender's WAM branch and for
+   `spray_paths` (`torch.profiler`); the `lt_encode` kernel over the
+   reference tests' shapes, ragged shapes with negative and out-of-range
+   indices, an unaligned payload (the word route), degree 200, rows of
+   several column tiles, K = 1 and the full-width message (the vector
+   route); three CUDA-graph replays of each kernel, bit-equal.  Results
+   must be equal; each kernel's time is printed beside the plain
+   version's, and `spray_select`'s beside its main-path form, the WAM
+   branch, `torch.searchsorted` and the card's launch floor.
 3. Run every case of `tests/golden/transport_seed.npz` and
    `transport_policies.npz` on the card and compare the five golden fields
    bit for bit.
@@ -64,6 +72,7 @@ from __future__ import annotations
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -78,7 +87,14 @@ import torch.nn.functional as F  # noqa: E402
 
 from repro_torch import random as prng  # noqa: E402
 from repro_torch.configs.registry import get_config, get_smoke_config  # noqa: E402
-from repro_torch.core.spray import SprayMethod, spray_key  # noqa: E402
+from repro_torch.core.profile import make_profile, quantize_profile  # noqa: E402
+from repro_torch.core.spray import (  # noqa: E402
+    SprayMethod,
+    SprayState,
+    make_spray_state,
+    spray_key,
+    spray_paths,
+)
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels.flash_attention import (  # noqa: E402
     flash_attention,
@@ -91,16 +107,24 @@ from repro_torch.kernels.flash_decode import (  # noqa: E402
     normalise,
 )
 from repro_torch.kernels.flash_decode import plan as decode_plan  # noqa: E402
-from repro_torch.kernels.lt_encode import as_int32_bits, lt_encode, lt_encode_plain  # noqa: E402
+from repro_torch.kernels.lt_encode import (  # noqa: E402
+    as_int32_bits,
+    lt_encode,
+    lt_encode_plain,
+)
+from repro_torch.kernels.lt_encode import plan as lt_plan  # noqa: E402
 from repro_torch.launch.serve import generate, prompts  # noqa: E402
 from repro_torch.models import model as M  # noqa: E402
 from repro_torch.kernels.spray_select import (  # noqa: E402
     spray_select,
     spray_select_plain,
+    spray_select_rows,
+    spray_select_rows_plain,
 )
 from repro_torch.net import fountain  # noqa: E402
 from repro_torch.net.fabric import FabricParams  # noqa: E402
-from repro_torch.net.policies import Policy  # noqa: E402
+from repro_torch.net.policies import Policy, assign_lanes  # noqa: E402
+from repro_torch.net.policy_state import PolicyState  # noqa: E402
 from repro_torch.net.topology import leaf_spine, null_schedule  # noqa: E402
 from repro_torch.net.transport import (  # noqa: E402
     TransportConfig,
@@ -201,6 +225,21 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+def ptxas_report(log: str) -> list:
+    """(kernel, registers, spill store bytes, spill load bytes) of each
+    entry function in an ``nvcc -Xptxas -v`` log."""
+    rows, name, spill = [], None, (0, 0)
+    for line in log.splitlines():
+        if m := re.search(r"Compiling entry function '(\w+)'", line):
+            name, spill = m.group(1), (0, 0)
+        elif m := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line):
+            spill = (int(m.group(1)), int(m.group(2)))
+        elif (m := re.search(r"Used (\d+) registers", line)) and name is not None:
+            rows.append((name, int(m.group(1)), *spill))
+            name = None
+    return rows
+
+
 def time_ms(fn, iters: int = 100, warmup: int = 10) -> float:
     """Mean time per call on the card's clock (CUDA events around eager
     calls: includes the host's launch overhead when it is the longer)."""
@@ -248,6 +287,71 @@ def spray_inputs(rng, rows: int, B: int, n: int, ell: int, dev):
     return counters, c, seeds
 
 
+def _rows_inputs(rng, rows: int, n: int, ell: int, variant: int, dev):
+    """Row bases within 64 of 2**32 (their lanes wrap) and seeds for the
+    row-base form; ``variant`` 0: int64 [R] seeds, 1: int32 bases and
+    seeds, 2: int64 bases and 0-d int32 seeds (read with a stride of 0)."""
+    _, c, seeds = spray_inputs(rng, rows, 1, n, ell, dev)
+    j = torch.as_tensor(rng.integers(2**32 - 64, 2**32, rows), device=dev)
+    sa, sb = seeds[:, 0], seeds[:, 1]
+    if variant == 1:
+        j = torch.where(j >= 2**31, j - 2**32, j).to(torch.int32)
+        sa, sb = sa.to(torch.int32), sb.to(torch.int32)
+    elif variant == 2:
+        sa, sb = sa[0].to(torch.int32), sb[0].to(torch.int32)
+    return j, c, sa, sb
+
+
+def device_op_names(fn, calls: int = 3) -> list:
+    """The names of the device operations that ``calls`` calls of ``fn``
+    run, from `torch.profiler`; fails when it records none."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events() if str(e.device_type).endswith("CUDA")]
+    if not names:
+        raise AssertionError("torch.profiler recorded no device activity")
+    return names
+
+
+def graph_replays_equal(fn, what: str, replays: int = 3):
+    """``replays`` replays of one captured call give the eager call's bits."""
+    eager = fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = fn()
+    for _ in range(replays):
+        graph.replay()
+        torch.cuda.synchronize()
+        if not torch.equal(out, eager):
+            raise AssertionError(f"{what}: a graph replay differs from the eager call")
+    print(f"[kernels] {what}: {replays} graph replays equal the eager call bit for bit")
+
+
+def wam_branch_call(rng, dev):
+    """The wide tick's WAM branch: 4,096 flows' int64 spray state, profiles
+    of 16 paths, 32 lanes."""
+    F, n, ell = WIDE_FLOWS, WIDE_SPINES, 10
+    b = torch.as_tensor(np.stack([np.bincount(rng.integers(0, n, 1 << ell), minlength=n)
+                                  for _ in range(F)]), device=dev)
+    spray = SprayState(j=torch.as_tensor(rng.integers(0, 2**32, F), device=dev),
+                       sa=torch.as_tensor(rng.integers(0, 1 << ell, F), device=dev),
+                       sb=torch.as_tensor(rng.integers(0, 512, F) * 2 + 1, device=dev),
+                       ell=ell, method=int(SprayMethod.SHUFFLE_1))
+    none = torch.zeros((F, 0), device=dev)
+    ps = PolicyState(rtt=none, penalty=none,
+                     entropy=torch.zeros((F, 0), dtype=torch.int64, device=dev), ccw=none)
+    ecmp = torch.zeros(F, dtype=torch.int64, device=dev)
+    prof = make_profile(b, ell)
+    return lambda: assign_lanes(Policy.WAM, WIDE_RATE, n, spray, prof, ecmp, ps, None)
+
+
 def phase_kernels(dev):
     """spray_select against its plain version; returns the kernel's row."""
     rng = np.random.default_rng(0)
@@ -276,18 +380,57 @@ def phase_kernels(dev):
             checked += 1
     print(f"[kernels] spray_select equals its plain version in {checked} cases")
 
+    # the row-base form: every method, ell, path count and input variant
+    checked = 0
+    row_shapes = {1: (WIDE_FLOWS, WIDE_RATE), 16: (WIDE_FLOWS, WIDE_RATE), 128: (64, 1000),
+                  20000: (2, 700)}
+    for method in SprayMethod:
+        for ell in (8, 10, 16):
+            for n, (rows, B) in row_shapes.items():
+                for variant in range(3):
+                    j, c, sa, sb = _rows_inputs(rng, rows, n, ell, variant, dev)
+                    before = spray_select.launches
+                    got = spray_select_rows(j, c, sa, sb, B, ell=ell, method=int(method))
+                    want = spray_select_rows_plain(j, c, sa, sb, B, ell=ell, method=int(method))
+                    torch.cuda.synchronize()
+                    if not torch.equal(got, want) or spray_select.launches != before + 1:
+                        raise AssertionError(f"spray_select_rows differs: {method.name} ell={ell} "
+                                             f"n={n} variant {variant}")
+                    checked += 1
+    print(f"[kernels] spray_select_rows (row bases wrapping past 2**32; int64, int32, stride-0 "
+          f"seeds) equals its plain version in {checked} cases")
+
+    # one device operation a call on the main path
+    wam = wam_branch_call(rng, dev)
+    router_profile = quantize_profile(0.5 + rng.random(64), 10, device=dev)
+    state = make_spray_state(router_profile, sa=333, sb=735, j0=2**32 - 100)
+    for what, fn in (("the WAM branch [4096 x 32], 16 paths", wam),
+                     ("spray_paths [1 x 4096], 64 paths",
+                      lambda: spray_paths(state, router_profile, ROUTER_BATCH))):
+        names = device_op_names(fn)
+        if len(names) != 3 or not all("spray_select" in x for x in names):
+            raise AssertionError(f"{what}: 3 calls ran {names}")
+        print(f"[kernels] {what}: one device operation a call ({names[0]})")
+
     # the main path's shape: one row per flow, rate_cap lanes, n = 16
     rows, B, n, ell = WIDE_FLOWS, WIDE_RATE, WIDE_SPINES, 10
     cnt, c, seeds = spray_inputs(rng, rows, B, n, ell, dev)
     cnt32 = torch.where(cnt >= 2 ** 31, cnt - 2 ** 32, cnt).to(torch.int32)
     seeds32 = seeds.to(torch.int32)
     method = int(SprayMethod.SHUFFLE_1)
+    j, sa, sb = cnt[:, 0].contiguous(), seeds[:, 0].contiguous(), seeds[:, 1].contiguous()
     out = spray_select(cnt32, c, seeds32, ell=ell, method=method)
+    graph_replays_equal(lambda: spray_select_rows(j, c, sa, sb, B, ell=ell, method=method),
+                        "spray_select_rows at the wide tick's shape")
     keys = spray_key(cnt, seeds[:, :1], seeds[:, 1:], ell, method).to(torch.int32)
+    one = torch.zeros(1, dtype=torch.int32, device=dev)
     calls = {
         "kernel": lambda: spray_select(cnt32, c, seeds32, ell=ell, method=method),
+        "main_path": lambda: spray_select_rows(j, c, sa, sb, B, ell=ell, method=method),
+        "wam_branch": wam,
         "plain": lambda: spray_select_plain(cnt, c, seeds, ell=ell, method=method),
         "searchsorted": lambda: torch.searchsorted(c, keys, right=True),
+        "launch_floor": lambda: one.add_(1),
     }
     eager = {k: time_ms(f) for k, f in calls.items()}
     graphed = {k: device_ms(f) for k, f in calls.items()}
@@ -296,11 +439,15 @@ def phase_kernels(dev):
           + ", ".join(f"{k} {v:.6f}" for k, v in graphed.items()))
     ms, plain_ms, library_ms = graphed["kernel"], graphed["plain"], graphed["searchsorted"]
     err = (out.to(torch.int64) - spray_select_plain(cnt, c, seeds, ell=ell, method=method)).abs().max()
+    # the bound counts the TPU kernel's function (explicit counters), as it always has
     nbytes = 4 * (cnt32.numel() + c.numel() + seeds32.numel() + out.numel())
     ops = rows * B * (5 + 2 * n)
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / CUDA_CORE_OPS_PER_S * 1e3
-    print(f"[kernels] spray_select [{rows}x{B}] n={n}: kernel {ms:.6f} ms, plain {plain_ms:.6f} ms, "
-          f"searchsorted {library_ms:.6f} ms, bound {max(t_bytes, t_ops):.6f} ms")
+    print(f"[kernels] spray_select [{rows}x{B}] n={n}: kernel {ms:.6f} ms, main-path form (int64 "
+          f"row bases and seeds) {graphed['main_path']:.6f} ms, WAM branch "
+          f"{graphed['wam_branch']:.6f} ms, plain {plain_ms:.6f} ms, searchsorted "
+          f"{library_ms:.6f} ms, launch floor (1-element add_) {graphed['launch_floor']:.6f} ms, "
+          f"bound {max(t_bytes, t_ops):.6f} ms")
     return dict(name="spray_select", route="cuda",
                 source="src/repro_torch/kernels/csrc/spray_select.cu",
                 replaces="src/repro/kernels/spray_select.py:79", launches=0,
@@ -343,20 +490,41 @@ def phase_lt_encode(dev, message):
     flat = torch.as_tensor(rng.integers(-2**31, 2**31, 33 * 512 + 1).astype(np.int32), device=dev)
     _, nb, ok = lt_inputs(rng, 33, 512, 19, 6, 0, 33, dev)
     cases.append(("unaligned payload", (flat[1:].view(33, 512), nb, ok)))
+    # the vector route's edges: degree 200 (50 rounds of 4 gathers), rows
+    # of 3 tiles of 256 vectors with a ragged last, a one-row payload
+    deep = lt_inputs(rng, 64, 1024, 40, 200, -131, 131, dev)
+    deep[2].fill_(True)
+    deep[2][0] = False  # and a row with no valid slot
+    cases.append(("degree 200", deep))
+    cases.append(("P = 3000 (tiles of 256, 256, 238 vectors)",
+                  lt_inputs(rng, 300, 3000, 50, 60, -603, 603, dev)))
+    cases.append(("K = 1", lt_inputs(rng, 1, 1024, 9, 3, -5, 5, dev)))
     payload_np, neigh_np, valid_np = message
     payload = as_int32_bits(payload_np).to(dev)
     neigh = torch.as_tensor(neigh_np, device=dev)
     valid = torch.as_tensor(valid_np, device=dev)
     cases.append((f"full width {CODED_K}x{CODED_P}->{CODED_R}", (payload, neigh, valid)))
+    routes = {"vector": 0, "word": 0}
     for name, args in cases:
         got = lt_encode(*args)
         want = lt_encode_plain(*args)
         torch.cuda.synchronize()
+        route = lt_plan(args[0].contiguous())
+        routes[route] += 1
         if not torch.equal(got, want):
-            raise AssertionError(f"lt_encode differs from its plain version: {name}")
+            raise AssertionError(f"lt_encode differs from its plain version: {name} ({route})")
         if name == "degree-one copy" and not torch.equal(got, copy):
             raise AssertionError("lt_encode: a degree-one encoding is not a copy")
-    print(f"[kernels] lt_encode equals its plain version in {len(cases)} cases")
+        if name == "degree 200" and got[0].any():
+            raise AssertionError("lt_encode: a row with no valid slot is not zero")
+        if name == "unaligned payload" and route != "word":
+            raise AssertionError("lt_encode: an unaligned payload did not take the word route")
+    if lt_plan(payload) != "vector":
+        raise AssertionError("lt_encode: the coded cell does not take the vector route")
+    print(f"[kernels] lt_encode equals its plain version in {len(cases)} cases "
+          f"({routes['vector']} on the vector route, {routes['word']} on the word route)")
+    graph_replays_equal(lambda: lt_encode(payload, neigh, valid),
+                        "lt_encode at the coded shape (vector route)")
 
     err = (got.to(torch.int64) - want.to(torch.int64)).abs().max()
     eager = {"kernel": time_ms(lambda: lt_encode(payload, neigh, valid)),
@@ -380,9 +548,12 @@ def phase_lt_encode(dev, message):
           f"{nbytes} B -> {t_bytes:.6f} ms, {ops} XORs -> {t_ops:.6f} ms; "
           f"gathered rows {4 * degree_sum * CODED_P} B")
     bound_by = "bytes" if t_bytes >= t_ops else "operations"
-    print(f"[kernels] lt_encode: kernel {graphed['kernel']:.6f} ms, plain {graphed['plain']:.6f} ms, "
-          f"bound {max(t_bytes, t_ops):.6f} ms ({bound_by}); library: none (no single PyTorch "
-          f"call computes a gather-XOR reduction)")
+    ms = graphed["kernel"]
+    print(f"[kernels] lt_encode: kernel {ms:.6f} ms ({100 * max(t_bytes, t_ops) / ms:.1f}% of the "
+          f"bound; {nbytes / ms / 1e6:.1f} GB/s of the bound's bytes, "
+          f"{4 * degree_sum * CODED_P / ms / 1e6:.1f} GB/s gathered), plain "
+          f"{graphed['plain']:.6f} ms, bound {max(t_bytes, t_ops):.6f} ms ({bound_by}); library: "
+          f"none (no single PyTorch call computes a gather-XOR reduction)")
     return dict(name="lt_encode", route="cuda",
                 source="src/repro_torch/kernels/csrc/lt_encode.cu",
                 replaces="src/repro/kernels/lt_encode.py:52", launches=0,
@@ -937,6 +1108,15 @@ def main() -> int:
     logs = build.build_all()
     for name, log in logs.items():
         print(f"[build] {name}: {log.strip()}")
+    for name in ("spray_select", "lt_encode"):
+        report = ptxas_report(logs[name])
+        if logs[name] == "up to date":
+            print(f"[build] ptxas {name}: built by an earlier run, no report")
+        elif not report:
+            raise AssertionError(f"no ptxas report for {name}.cu in the build log")
+        for kernel, regs, stores, loads in report:
+            print(f"[build] ptxas {name}: {kernel}: {regs} registers, spill stores {stores} B, "
+                  f"spill loads {loads} B")
     print(f"[build] {len(logs)} kernel(s) built in {time.time() - t0:.1f} s")
     message = coded_message()
     rows = {"spray_select": phase_kernels(dev), "lt_encode": phase_lt_encode(dev, message),

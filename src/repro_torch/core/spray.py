@@ -105,13 +105,12 @@ def make_spray_state(profile: PathProfile, *, method: SprayMethod = SprayMethod.
 
 def spray_paths(state: SprayState, profile: PathProfile, count: int) -> torch.Tensor:
     """Paths int32[count] of the next `count` packets (no state update),
-    from one row of the `spray_select` kernel."""
-    from repro_torch.kernels.spray_select import spray_select  # imports this module
+    from one row of the `spray_select` kernel's row-base form: one device
+    operation on a CUDA device."""
+    from repro_torch.kernels.spray_select import spray_select_rows  # imports this module
 
-    js = (state.j + torch.arange(count, dtype=torch.int64, device=state.j.device)) & M32
-    seeds = torch.stack([state.sa, state.sb]).reshape(1, 2)
-    return spray_select(js.reshape(1, count), profile.c.reshape(1, -1), seeds,
-                        ell=state.ell, method=state.method)[0]
+    return spray_select_rows(state.j, profile.c.reshape(1, -1), state.sa, state.sb, count,
+                             ell=state.ell, method=state.method)[0]
 
 
 def spray_batch(state: SprayState, profile: PathProfile,

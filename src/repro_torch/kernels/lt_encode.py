@@ -14,7 +14,11 @@ accepted (the TPU kernel's (8, 512) tiling does not carry over).
 
 `lt_encode` launches the CUDA kernel (``csrc/lt_encode.cu``) on CUDA
 tensors and runs `lt_encode_plain` on CPU tensors; a CUDA tensor never
-falls back to the plain version.
+falls back to the plain version.  The kernel has two routes, which `plan`
+chooses: "vector" (each thread gathers one 16-byte vector of four source
+rows at a time, with L2 cache hints) when the rows are whole 16-byte
+vectors (P % 4 == 0) and the payload starts on a 16-byte boundary, "word"
+(one 32-bit word a thread) otherwise.
 """
 from __future__ import annotations
 
@@ -24,7 +28,7 @@ import functools
 import numpy as np
 import torch
 
-__all__ = ["lt_encode", "lt_encode_plain", "as_int32_bits", "as_uint32"]
+__all__ = ["lt_encode", "lt_encode_plain", "plan", "as_int32_bits", "as_uint32"]
 
 _I32_MIN, _I32_MAX = -2 ** 31, 2 ** 31 - 1
 
@@ -81,6 +85,18 @@ def _check(payload, neighbors, valid):
         raise ValueError("at most 2**31 - 1 source symbols")
 
 
+def plan(payload: torch.Tensor) -> str:
+    """The kernel's route for a contiguous payload ``[K, P]`` (the output
+    is a fresh allocation, so always aligned): "vector" when P % 4 == 0
+    and the base is 16-byte aligned, which 16-byte loads need; else
+    "word"."""
+    aligned = payload.data_ptr() % 16 == 0
+    return "vector" if payload.shape[1] % 4 == 0 and aligned else "word"
+
+
+_ROUTES = {"word": 0, "vector": 1}
+
+
 @functools.cache
 def _launcher():
     """The kernel's C entry point, built and bound at the first CUDA call."""
@@ -88,7 +104,7 @@ def _launcher():
 
     fn = load("lt_encode").lt_encode_launch
     fn.argtypes = ([ctypes.c_void_p] * 4
-                   + [ctypes.c_int, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+                   + [ctypes.c_int, ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int,
                       ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
@@ -114,7 +130,7 @@ def lt_encode(payload: torch.Tensor, neighbors: torch.Tensor,
     out = torch.empty((R, P), dtype=torch.int32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = fn(pay.data_ptr(), nb.data_ptr(), ok.data_ptr(), out.data_ptr(),
-             K, P, R, dmax, stream)
+             K, P, R, dmax, _ROUTES[plan(pay)], stream)
     if err != 0:
         raise RuntimeError(f"lt_encode launch failed with CUDA error {err}")
     lt_encode.launches += 1

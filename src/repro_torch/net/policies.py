@@ -4,9 +4,10 @@ adaptive sprayers, one branch each.
 The JAX engine picks a branch with a traced `lax.switch`; here the policy
 is a concrete id and `assign_lanes` dispatches in Python.  Each branch maps
 a tick's ``rate_cap`` emission lanes of every flow to path ids
-``int32[F, rate_cap]``.  The WAM branch goes through the `spray_select`
-kernel.  A state-bearing policy whose block is disabled falls back to
-RAND_STATIC, as in the reference.
+``int32[F, rate_cap]``.  The WAM branch is one launch of the `spray_select`
+kernel's row-base form, on the flows' own int64 counters and seeds.  A
+state-bearing policy whose block is disabled falls back to RAND_STATIC, as
+in the reference.
 """
 from __future__ import annotations
 
@@ -18,7 +19,7 @@ import torch
 
 from repro_torch.core.profile import PathProfile
 from repro_torch.core.spray import SprayState, select_path, spray_key
-from repro_torch.kernels.spray_select import spray_select, spray_select_plain
+from repro_torch.kernels.spray_select import spray_select_rows, spray_select_rows_plain
 from repro_torch.net.policy_state import PolicyState, canon_blocks
 from repro_torch.numerics import fold_cumsum
 from repro_torch.random import M32
@@ -114,21 +115,20 @@ def assign_lanes(policy: Policy | int, rate_cap: int, n: int, spray: SprayState,
     RAND_STATIC or [0, m) for RAND_ADAPTIVE (None for the other branches).
     ``plain_spray`` runs the WAM branch through the kernel's plain version."""
     branch = _branch(policy, pstate)
-    dev = spray.j.device
-    lanes = torch.arange(rate_cap, dtype=torch.int64, device=dev)
-    counters = (spray.j.unsqueeze(-1) + lanes) & M32  # [F, rate_cap]
     if branch == Policy.ECMP:
         return ecmp_path.unsqueeze(-1).expand(-1, rate_cap).to(torch.int32)
-    if branch == Policy.RR:
-        return (counters % n).to(torch.int32)
     if branch == Policy.RAND_STATIC:
         return rand_lanes
     if branch == Policy.RAND_ADAPTIVE:
         return select_path(profile.c, rand_lanes)
-    if branch == Policy.WAM:
-        seeds = torch.stack([spray.sa, spray.sb], dim=-1)
-        select = spray_select_plain if plain_spray else spray_select
-        return select(counters, profile.c, seeds, ell=spray.ell, method=spray.method)
+    if branch == Policy.WAM:  # one kernel launch: the lanes' counters are formed in it
+        select = spray_select_rows_plain if plain_spray else spray_select_rows
+        return select(spray.j, profile.c, spray.sa, spray.sb, rate_cap, ell=spray.ell,
+                      method=spray.method)
+    lanes = torch.arange(rate_cap, dtype=torch.int64, device=spray.j.device)
+    counters = (spray.j.unsqueeze(-1) + lanes) & M32  # [F, rate_cap]
+    if branch == Policy.RR:
+        return (counters % n).to(torch.int32)
     if branch == Policy.PRIME:
         ent = torch.gather(pstate.entropy, -1, counters % n)
         return (ent % n).to(torch.int32)

@@ -85,6 +85,154 @@ def test_lt_encode_kernel_unaligned_payload(cuda):
     assert torch.equal(lt_encode(payload, neigh, valid), lt_encode_plain(payload, neigh, valid))
 
 
+def _rows_case(rng, R, n, ell, cuda, *, j_dtype, seed_dtype, scalar_seeds):
+    b = np.stack([np.bincount(rng.integers(0, n, 1 << ell), minlength=n) for _ in range(R)])
+    c = torch.as_tensor(np.cumsum(b, 1).astype(np.int32), device=cuda)
+    j = rng.integers(2**32 - 40, 2**32, R)  # every row's lanes wrap past 2**32
+    if j_dtype == torch.int32:
+        j = np.where(j >= 2**31, j - 2**32, j)
+    j = torch.as_tensor(j, dtype=j_dtype, device=cuda)
+    sa = rng.integers(0, 1 << ell, R)
+    sb = rng.integers(0, 1 << (ell - 1), R) * 2 + 1
+    if scalar_seeds:  # 0-d seeds: the kernel reads them with a stride of 0
+        sa, sb = sa[0], sb[0]
+    return (j, c, torch.as_tensor(sa, dtype=seed_dtype, device=cuda),
+            torch.as_tensor(sb, dtype=seed_dtype, device=cuda))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("R,B,n", [(4096, 32, 16), (1, 4096, 64), (3, 1001, 1), (2, 700, 20000)])
+@pytest.mark.parametrize("dtypes", [(torch.int64, torch.int64, False),
+                                    (torch.int32, torch.int32, False),
+                                    (torch.int64, torch.int32, True)],
+                         ids=["i64", "i32", "i64-scalar-i32-seeds"])
+def test_spray_select_rows_kernel_matches_plain(cuda, R, B, n, dtypes):
+    """The row-base form on the card equals its plain version for every
+    method, with counters that wrap past 2**32, int32 and int64 inputs and
+    scalar (stride-0) seeds; one launch a call."""
+    from repro_torch.kernels.spray_select import spray_select_rows, spray_select_rows_plain
+
+    rng = np.random.default_rng(R + B + n)
+    j_dtype, seed_dtype, scalar = dtypes
+    for method in range(4):
+        for ell in (8, 10, 16):
+            j, c, sa, sb = _rows_case(rng, R, n, ell, cuda, j_dtype=j_dtype,
+                                      seed_dtype=seed_dtype, scalar_seeds=scalar)
+            before = spray_select.launches
+            got = spray_select_rows(j, c, sa, sb, B, ell=ell, method=method)
+            assert spray_select.launches == before + 1
+            want = spray_select_rows_plain(j, c, sa, sb, B, ell=ell, method=method)
+            assert torch.equal(got, want)
+
+
+def _device_ops(fn, calls):
+    """The device operations that ``calls`` calls of ``fn`` run, by name
+    (None when the profiler records no device activity)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    device = [e.name for e in prof.events() if str(e.device_type).endswith("CUDA")]
+    return device or None
+
+
+@pytest.mark.cuda
+def test_spray_select_is_one_kernel_a_call(cuda):
+    """The sender's WAM branch (4,096 flows of int64 counters and seeds, 32
+    lanes, 16 paths) and `spray_paths` (one row of 4,096, 64 paths) are each
+    one device kernel a call and nothing else."""
+    from repro_torch.core.profile import make_profile, quantize_profile
+    from repro_torch.core.spray import SprayState, make_spray_state, spray_paths
+    from repro_torch.net.policies import Policy, assign_lanes
+    from repro_torch.net.policy_state import PolicyState
+
+    F, rate, n, ell = 4096, 32, 16, 10
+    rng = np.random.default_rng(11)
+    b = torch.as_tensor(np.stack([np.bincount(rng.integers(0, n, 1 << ell), minlength=n)
+                                  for _ in range(F)]), device=cuda)
+    prof = make_profile(b, ell)
+    spray = SprayState(j=torch.as_tensor(rng.integers(0, 2**32, F), device=cuda),
+                       sa=torch.as_tensor(rng.integers(0, 1 << ell, F), device=cuda),
+                       sb=torch.as_tensor(rng.integers(0, 512, F) * 2 + 1, device=cuda),
+                       ell=ell, method=1)
+    none = torch.zeros((F, 0), device=cuda)
+    ps = PolicyState(rtt=none, penalty=none, entropy=torch.zeros((F, 0), dtype=torch.int64,
+                                                                 device=cuda), ccw=none)
+    ecmp = torch.zeros(F, dtype=torch.int64, device=cuda)
+    wam = _device_ops(lambda: assign_lanes(Policy.WAM, rate, n, spray, prof, ecmp, ps, None), 3)
+    one = quantize_profile(0.5 + rng.random(64), ell, device=cuda)
+    state = make_spray_state(one, sa=300, sb=77, j0=2**32 - 100)
+    paths = _device_ops(lambda: spray_paths(state, one, 4096), 3)
+    if wam is None or paths is None:
+        pytest.skip("the profiler recorded no device activity here")
+    for names in (wam, paths):
+        assert len(names) == 3 and all("spray_select" in x for x in names), names
+
+
+@pytest.mark.cuda
+def test_spray_select_and_lt_encode_graph_replays_are_identical(cuda):
+    """Three replays of a captured call of each kernel (the row-base spray
+    at the wide tick's shape, lt_encode's vector route) give the eager
+    call's bits."""
+    from repro_torch.kernels.lt_encode import lt_encode, plan
+    from repro_torch.kernels.spray_select import spray_select_rows
+
+    rng = np.random.default_rng(12)
+    j, c, sa, sb = _rows_case(rng, 4096, 16, 10, cuda, j_dtype=torch.int64,
+                              seed_dtype=torch.int64, scalar_seeds=False)
+    K, P, R, dmax = 2048, 1024, 3001, 32
+    payload = torch.as_tensor(rng.integers(-2**31, 2**31, (K, P)).astype(np.int32), device=cuda)
+    neigh = torch.as_tensor(rng.integers(0, K, (R, dmax)).astype(np.int32), device=cuda)
+    valid = torch.as_tensor(rng.random((R, dmax)) < 0.2, device=cuda)
+    assert plan(payload) == "vector"
+    calls = [lambda: spray_select_rows(j, c, sa, sb, 32, ell=10, method=3),
+             lambda: lt_encode(payload, neigh, valid)]
+    for fn in calls:
+        eager = fn()
+        torch.cuda.synchronize()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            out = fn()
+        for _ in range(3):
+            graph.replay()
+            torch.cuda.synchronize()
+            assert torch.equal(out, eager)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K,P,R,dmax", [(64, 1024, 40, 200), (300, 3000, 50, 60), (1, 4, 9, 3),
+                                        (8192, 1024, 13139, 32)],
+                         ids=["degree-200", "three-tiles", "K1", "coded-shape"])
+def test_lt_encode_vector_route_matches_plain(cuda, K, P, R, dmax):
+    """The vector route equals the plain version: rows of degree up to 200
+    (many rounds of gathers, and a row with no valid slot), rows of three
+    column tiles with a ragged last (3,000 words), a one-row payload, and
+    the coded cell's shape with its own encoding
+    (`fountain.sample_encoding`, seed 0)."""
+    from repro_torch.kernels.lt_encode import lt_encode, lt_encode_plain, plan
+    from repro_torch.net import fountain
+
+    rng = np.random.default_rng(K + P)
+    payload = torch.as_tensor(rng.integers(-2**31, 2**31, (K, P)).astype(np.int32), device=cuda)
+    if (K, R) == (8192, 13139):
+        nb, ok = fountain.sample_encoding(K, R, np.random.default_rng(0), dmax=dmax)
+        neigh, valid = torch.as_tensor(nb, device=cuda), torch.as_tensor(ok, device=cuda)
+    else:
+        neigh = torch.as_tensor(rng.integers(-2 * K - 3, 2 * K + 3, (R, dmax)).astype(np.int32),
+                                device=cuda)
+        valid = torch.as_tensor(rng.random((R, dmax)) < 0.9, device=cuda)
+        valid[0] = False  # a row with no valid slot encodes to zeros
+    assert plan(payload) == "vector"
+    got = lt_encode(payload, neigh, valid)
+    assert torch.equal(got, lt_encode_plain(payload, neigh, valid))
+    if (K, R) != (8192, 13139):
+        assert not got[0].any()
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("B,H,KVH,Sq,Sk,D,causal,window,q_offset", [
