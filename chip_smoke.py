@@ -19,10 +19,16 @@ Phases (the first that fails ends the run with a nonzero exit):
    reference tests' shapes, ragged shapes with negative and out-of-range
    indices, an unaligned payload (the word route), degree 200, rows of
    several column tiles, K = 1 and the full-width message (the vector
-   route); three CUDA-graph replays of each kernel, bit-equal.  Results
-   must be equal; each kernel's time is printed beside the plain
-   version's, and `spray_select`'s beside its main-path form, the WAM
-   branch, `torch.searchsorted` and the card's launch floor.
+   route); the `link_fold` kernel over the fabric's link lists at depths
+   1, 64 (the wide cell), 512, 8,192 (the fat-tree family's scenarios),
+   32,768 (intra-pod traffic on a fat-tree's bypass link) and a ragged
+   case with empty links, on float32 values of mixed signs and magnitudes;
+   three CUDA-graph replays of each kernel, bit-equal.  Results must be
+   equal; each kernel's time is printed beside the plain version's, and
+   `spray_select`'s beside its main-path form, the WAM branch,
+   `torch.searchsorted` and the card's launch floor, `link_fold`'s beside
+   the launch floor, `index_add` and its bound (the deepest link's chain
+   of dependent adds, or the bytes).
 3. Run every case of `tests/golden/transport_seed.npz` and
    `transport_policies.npz` on the card and compare the five golden fields
    bit for bit.
@@ -30,16 +36,29 @@ Phases (the first that fails ends the run with a nonzero exit):
    fabric for WAM and ECMP; every flow must finish.  The WAM run is
    repeated with the spray held to its plain version: outputs must be
    identical.
-5. The coded path: one 32 MiB message (K = 8,192 source symbols of 4 KiB)
+5. The fat-tree family (benchmarks/bench_scaleout.py's full pass,
+   unsharded): `sweep_flows_scenarios` over the four `fat_tree_scenarios`
+   of 4,096 flows on 8 pods x 4 leaves x 2 spines x 2 cores (link capacity
+   32, host rate 64, 4 packets a flow, horizon 2,048, early exit), ECMP and
+   WAM, one draw, with telemetry (stride 16, window 128): every flow must
+   finish; the ticks, ms a tick, cct percentiles and kernel launches of
+   each run, the peak memory and the cct digest are printed.  WAM on
+   `inter_pod_incast` without telemetry, and WAM on `core_link_flap` with
+   the plain spray, must equal their slices.  Then the card against the
+   CPU: `pair_scenarios(flows=4, horizon=256)` and a 64-flow fat-tree
+   family (4 pods x 2 x 2 x 2, with one placement of intra- and inter-pod
+   flows) through `sweep_flows_scenarios` with telemetry over ECMP, WAM and
+   CC_COUPLED and two draws: every result field and frame leaf bit-equal.
+6. The coded path: one 32 MiB message (K = 8,192 source symbols of 4 KiB)
    encoded into R = 13,139 symbols on the card; decoding all of them and a
    seeded 90% subset, a K = 256 round trip and two `decode_overhead_curve`
    runs must equal the same calls on the CPU.  (The `lt_encode` kernel is
    held to its plain version in phase 2, at this shape among others.)
-6. The serving router: 64 replicas of unequal weight, 200 windows of
+7. The serving router: 64 replicas of unequal weight, 200 windows of
    4,096 requests with one replica 8x slower in windows 50-119; every
    replica id, sequence number, severity weight and share must equal the
    router's CPU run.
-7. Dense serving (the model zoo's path): (a) `smoke()` of qwen3-8b and of
+8. Dense serving (the model zoo's path): (a) `smoke()` of qwen3-8b and of
    h2o-danube-3-4b on the card, held to the same run on the CPU (which
    the CPU tests hold to the JAX model); (b) full width: qwen3-8b, all 36
    layers, f32 weights from a seeded generator on the card, 4 prompts of
@@ -60,15 +79,17 @@ Phases (the first that fails ends the run with a nonzero exit):
    once, and three CUDA-graph replays of one call) and times them beside
    the plain versions and `scaled_dot_product_attention`.
 
-Each path of phases 4-7 runs with the kernels' launch counts set to 0
+Each path of phases 4-8 runs with the kernels' launch counts set to 0
 just before it and read just after; a kernel row's ``launches`` is its
-total over those paths.  The last lines are the card's name and power
-limit, one JSON object with a row per kernel, and
-``{"ok": true, "device": {...}}``.  Without a CUDA
+total over those paths (the comparisons of phase 5 not counted).  The
+last lines are the card's name and power limit, one JSON object with a
+row per kernel, and ``{"ok": true, "device": {...}}``.  Without a CUDA
 device the script exits nonzero and prints no result.
 """
 from __future__ import annotations
 
+import dataclasses
+import hashlib
 import json
 import math
 import os
@@ -112,6 +133,7 @@ from repro_torch.kernels.lt_encode import (  # noqa: E402
     lt_encode,
     lt_encode_plain,
 )
+from repro_torch.kernels.link_fold import link_fold, link_fold_plain, link_segments  # noqa: E402
 from repro_torch.kernels.lt_encode import plan as lt_plan  # noqa: E402
 from repro_torch.launch.serve import generate, prompts  # noqa: E402
 from repro_torch.models import model as M  # noqa: E402
@@ -125,7 +147,18 @@ from repro_torch.net import fountain  # noqa: E402
 from repro_torch.net.fabric import FabricParams  # noqa: E402
 from repro_torch.net.policies import Policy, assign_lanes  # noqa: E402
 from repro_torch.net.policy_state import PolicyState  # noqa: E402
-from repro_torch.net.topology import leaf_spine, null_schedule  # noqa: E402
+from repro_torch.net import sender  # noqa: E402
+from repro_torch.net.scenarios import (  # noqa: E402
+    fat_tree_scenarios,
+    pair_scenarios,
+    stack_scenarios,
+)
+from repro_torch.net.telemetry import (  # noqa: E402
+    TelemetrySpec, frame_select, init_frame, record, series,
+)
+from repro_torch.net.topology import (  # noqa: E402
+    fat_tree, init_shared_fabric, leaf_spine, link_telemetry, null_schedule,
+)
 from repro_torch.net.transport import (  # noqa: E402
     TransportConfig,
     simulate_flows,
@@ -172,6 +205,18 @@ GOLDEN_CASES = (
 # the full-width cell
 WIDE_LEAVES, WIDE_SPINES, WIDE_FLOWS = 64, 16, 4096
 WIDE_RATE, WIDE_PACKETS, WIDE_HORIZON = 32, 256, 2048
+# the fat-tree family: bench_scaleout.py's full pass (:79-91), unsharded
+FAT_FLOWS, FAT_PACKETS, FAT_HORIZON, FAT_RATE = 4096, 4, 2048, 32
+FAT_GRID = dict(n_pods=8, leaves_per_pod=4, spines_per_pod=2, cores_per_spine=2)
+FAT_CAPACITY, FAT_HOST_RATE = 32.0, 64.0
+FAT_TELEMETRY = dict(stride=16, window=128)
+FAT_POLICIES = ("ECMP", "WAM")
+# the card-against-CPU sweeps: the CPU tests' families
+SMALL_POLICIES, SMALL_HORIZON, SMALL_PACKETS = ("ECMP", "WAM", "CC_COUPLED"), 256, 32
+SMALL_TELEMETRY = dict(stride=4, window=64)
+# a dependent float32 add waits this many cycles of the SM clock on Hopper's
+# CUDA cores (the latency of FADD; the card's clock is read with nvidia-smi)
+FADD_CYCLES = 4
 # the coded message: K source symbols of P uint32 words (4 KiB, an MTU's
 # payload) make 32 MiB, about one DDP gradient bucket (bucket_cap_mb = 25)
 CODED_K, CODED_P, CODED_DMAX = 8192, 1024, 32
@@ -561,6 +606,103 @@ def phase_lt_encode(dev, message):
                 bound_ms=max(t_bytes, t_ops), bound_by=bound_by, library_ms=None)
 
 
+def sm_clock_hz() -> float:
+    """The card's largest SM clock, from nvidia-smi."""
+    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                          "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, check=True, timeout=60)
+    return float(out.stdout.strip().splitlines()[0]) * 1e6
+
+
+def fold_values(rng, n: int, dev) -> torch.Tensor:
+    """float32 values of both signs from 2**-30 to 2**20, about 5% zeros of
+    either sign: a change in the order of additions changes their sums."""
+    mag = np.exp2(rng.uniform(-30, 20, n))
+    vals = np.where(rng.random(n) < 0.5, -mag, mag) * (rng.random(n) > 0.05)
+    vals = vals.astype(np.float32)
+    vals[rng.random(n) < 0.02] = -0.0
+    return torch.as_tensor(vals, device=dev)
+
+
+def intra_pod_pairs(flows: int):
+    """Flow f from leaf f mod 32 to the next leaf of its pod: all traffic
+    turns at the spines, so hops 1 and 2 of every path ride the bypass."""
+    lp = FAT_GRID["leaves_per_pod"]
+    n_leaves = FAT_GRID["n_pods"] * lp
+    return [(f % n_leaves, (f % n_leaves) // lp * lp + (f % n_leaves % lp + 1) % lp)
+            for f in range(flows)]
+
+
+def fat_family(flows=None, horizon=None, grid=None, capacity=None, host_rate=None):
+    """The fat-tree family, by default at full width."""
+    return fat_tree_scenarios(flows=flows or FAT_FLOWS, horizon=horizon or FAT_HORIZON,
+                              link_capacity=capacity or FAT_CAPACITY,
+                              host_rate=host_rate or FAT_HOST_RATE, **(grid or FAT_GRID))
+
+
+def phase_link_fold(dev):
+    """link_fold against its plain version; returns the kernel's row."""
+    rng = np.random.default_rng(2)
+    family = fat_family()
+    routes = [("depth 1", torch.randperm(4096, generator=torch.Generator().manual_seed(0))
+               .to(torch.int32).reshape(1, 4096, 1), 4096),
+              ("wide cell", leaf_spine(WIDE_LEAVES, WIDE_SPINES, wide_pairs()).route,
+               2 * WIDE_LEAVES * WIDE_SPINES)]
+    routes += [(name, topo.route, topo.links) for name, (topo, _) in family.items()
+               if name in ("inter_pod_uniform", "inter_pod_incast")]
+    bypass = fat_tree(**FAT_GRID, flow_pairs=intra_pod_pairs(FAT_FLOWS))
+    routes.append(("intra-pod on the bypass", bypass.route, bypass.links))
+    ragged = torch.as_tensor(rng.integers(0, 300, (3, 500, 4)).astype(np.int32) * 3)
+    routes.append(("ragged, 2/3 of the links empty", ragged, 1000))
+    clock = sm_clock_hz()
+    one = torch.zeros(1, dtype=torch.int32, device=dev)
+    floor = device_ms(lambda: one.add_(1))
+    row = None
+    for name, route, links in routes:
+        seg = link_segments(route.to(dev), links)
+        vals = fold_values(rng, seg.entries, dev).reshape(route.shape)
+        base = fold_values(rng, links, dev)
+        base[: links // 7] = -0.0
+        before = link_fold.launches
+        got = link_fold(vals, seg, base)
+        want = link_fold_plain(vals, seg, base)
+        torch.cuda.synchronize()
+        if link_fold.launches != before + 1:
+            raise AssertionError(f"link_fold, {name}: not one launch a call")
+        if not torch.equal(got.view(torch.int32), want.view(torch.int32)):
+            bad = int((got.view(torch.int32) != want.view(torch.int32)).sum())
+            raise AssertionError(f"link_fold differs from its plain version: {name} "
+                                 f"({bad} of {links} links)")
+        ms = device_ms(lambda: link_fold(vals, seg, base))
+        nbytes = 4 * (2 * seg.entries + 3 * links + 1)
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_chain = seg.depth * FADD_CYCLES / clock * 1e3
+        print(f"[kernels] link_fold, {name}: {links} links, {seg.entries} entries, deepest "
+              f"{seg.depth}: bit-equal to the plain version; {ms:.6f} ms (launch floor "
+              f"{floor:.6f}), bound {max(t_bytes, t_chain):.6f} ms (chain of {seg.depth} adds "
+              f"x {FADD_CYCLES} cycles at {clock / 1e6:.0f} MHz {t_chain:.6f}, {nbytes} B "
+              f"{t_bytes:.6f})")
+        if name == "inter_pod_incast":  # the main path's deepest fold
+            flat_links = route.reshape(-1).to(dev, torch.int64)
+            graph_replays_equal(lambda: link_fold(vals, seg, base),
+                                "link_fold at inter_pod_incast's shape")
+            plain_ms = device_ms(lambda: link_fold_plain(vals, seg, base), iters=1)
+            plain_eager = time_ms(lambda: link_fold_plain(vals, seg, base), iters=1, warmup=1)
+            library_ms = device_ms(lambda: base.index_add(0, flat_links, vals.reshape(-1)))
+            print(f"[kernels] link_fold at inter_pod_incast's shape: kernel {ms:.6f} ms, plain "
+                  f"{plain_ms:.6f} ms graph / {plain_eager:.6f} eager ({2 * seg.depth} "
+                  f"launches), index_add {library_ms:.6f} ms (not in this order)")
+            row = dict(name="link_fold", route="cuda",
+                       source="src/repro_torch/kernels/csrc/link_fold.cu",
+                       replaces="src/repro/net/topology.py:447", launches=0,
+                       max_abs_err=float((got - want).abs().max()), ms=ms,
+                       plain_ms=plain_ms, bound_ms=max(t_bytes, t_chain),
+                       bound_by="bytes" if t_bytes >= t_chain else "operations",
+                       library_ms=library_ms)
+    print(f"[kernels] link_fold equals its plain version bit for bit in {len(routes)} cases")
+    return row
+
+
 def phase_goldens(dev):
     files = {f: np.load(os.path.join(GOLDEN_DIR, f)) for f in
              ("transport_seed.npz", "transport_policies.npz")}
@@ -604,28 +746,192 @@ def run_wide(policy: str, dev, *, plain_spray: bool = False):
 def phase_wide(dev, kernel_rows):
     results = {}
     for policy in ("WAM", "ECMP"):
-        spray_select.launches = 0
+        spray_select.launches = link_fold.launches = 0
         r, secs, peak = run_wide(policy, dev)
-        launches = spray_select.launches
+        launches, folds = spray_select.launches, link_fold.launches
+        if folds <= 0:
+            raise AssertionError(f"the wide {policy} run never launched link_fold")
+        kernel_rows["link_fold"]["launches"] += folds
         if not bool(r.finished.all()):
             raise AssertionError(f"{policy}: {int((~r.finished).sum())} flows did not finish")
         cct = r.cct.cpu().numpy()
-        decisions = r.ticks_run * WIDE_FLOWS * WIDE_RATE
-        print(f"[wide] {policy}: ticks {r.ticks_run}, {1e3 * secs / r.ticks_run:.4f} ms/tick, "
+        ticks = int(r.ticks_run)
+        decisions = ticks * WIDE_FLOWS * WIDE_RATE
+        print(f"[wide] {policy}: ticks {ticks}, {1e3 * secs / ticks:.4f} ms/tick, "
               f"{decisions / secs:.1f} path decisions/s, cct p50 {np.percentile(cct, 50)} "
               f"p99 {np.percentile(cct, 99)}, peak memory {peak} B, "
-              f"spray_select launches {launches}")
+              f"spray_select launches {launches}, link_fold launches {folds}")
         results[policy] = r
         if policy == "WAM":
             if launches <= 0:
                 raise AssertionError("the WAM run never launched spray_select")
-            kernel_rows["spray_select"]["launches"] = launches
+            kernel_rows["spray_select"]["launches"] += launches
     plain, _, _ = run_wide("WAM", dev, plain_spray=True)
     for field in ("cct", "sent_total", "dropped_total", "final_b", "received",
                   "finished", "link_served", "link_busy"):
         if not torch.equal(getattr(plain, field), getattr(results["WAM"], field)):
             raise AssertionError(f"WAM with the plain spray differs on {field}")
     print("[wide] WAM with the plain spray on the card: identical outputs")
+
+
+def _digest(cct: torch.Tensor) -> str:
+    """benchmarks/bench_scaleout.py's cct digest."""
+    return hashlib.sha256(np.ascontiguousarray(
+        cct.cpu().numpy().astype(np.float32)).tobytes()).hexdigest()[:16]
+
+
+def _equal_runs(a, b, what):
+    """Every field of two SimResults, or of two (SimResult, frame) pairs."""
+    for x, y in zip(a if isinstance(a, tuple) else (a,), b if isinstance(b, tuple) else (b,)):
+        for f in dataclasses.fields(x):
+            u, v = getattr(x, f.name), getattr(y, f.name)
+            if u.dtype != v.dtype or u.shape != v.shape or not torch.equal(u.cpu(), v.cpu()):
+                raise AssertionError(f"{what}: {f.name} differs")
+
+
+def stride_tick_telemetry_waits(topo, dev) -> None:
+    """A stride tick's telemetry on the card, under torch's sync debug mode
+    "error": the link reader (one `link_fold` launch) and `record` at the
+    full width raise if they make the host wait for the card.  The CSR the
+    link reader folds over is built before, once a run, as in the run."""
+    topo = sender.to_device(topo, dev)
+    F, n, L = topo.flows, topo.n, topo.links
+    spec = TelemetrySpec(**FAT_TELEMETRY)
+    frame = init_frame(spec, (F,), n, L, device=dev)
+    state = init_shared_fabric(topo)
+    z = torch.zeros(F, device=dev)
+    fpp = torch.zeros(F, n, device=dev)
+    link_telemetry(topo, state)  # builds the cached CSR once, as a run's first tick does
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        capture = (state.queue == 0).all()  # holds: a fresh fabric is empty
+        frame = record(spec, frame, capture, tick=FAT_TELEMETRY["stride"], m=1 << 10,
+                       alloc=torch.ones(F, n, dtype=torch.int32, device=dev), sent_pp=fpp,
+                       dropped_pp=fpp, debt=z, emitted=z, received=z,
+                       j=torch.zeros(F, dtype=torch.int64, device=dev),
+                       link=link_telemetry(topo, state))
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    if int(frame.count) != 1 or int(frame.tick[0]) != FAT_TELEMETRY["stride"]:
+        raise AssertionError("fat-tree: the stride-tick check did not record its sample")
+
+
+def _small_families():
+    """The CPU tests' families: the pair scenarios of 4 flows, and the
+    fat-tree family of 64 flows on 4 pods x 2 x 2 x 2 with one placement
+    that mixes intra- and inter-pod flows."""
+    grid = dict(n_pods=4, leaves_per_pod=2, spines_per_pod=2, cores_per_spine=2)
+    fat = list(fat_family(flows=64, horizon=SMALL_HORIZON, grid=grid, capacity=8.0,
+                          host_rate=32.0).values())
+    mixed = [(2 * (f % 4), 2 * (f % 4) + 1) if f % 2 else (f % 8, (f + 3) % 8)
+             for f in range(64)]
+    topo = fat_tree(**grid, flow_pairs=mixed)
+    fat.append((topo, null_schedule(topo.links)))
+    return {"pair": stack_scenarios(list(pair_scenarios(flows=4, horizon=SMALL_HORIZON)
+                                         .values())),
+            "fat-tree": stack_scenarios(fat)}
+
+
+def phase_fat_tree(dev, rows):
+    family = fat_family()
+    names = list(family)
+    topos, scheds = stack_scenarios(list(family.values()))
+    spec = sender.SenderSpec(rate_cap=FAT_RATE, early_exit=True,
+                             telemetry=TelemetrySpec(**FAT_TELEMETRY))
+    sp = sender.policy_sweep_params([Policy[p] for p in FAT_POLICIES], rate=FAT_RATE)
+    keys = prng.split(prng.PRNGKey(7), 1)
+    runs = {}
+    last = [time.perf_counter(), 0, 0]
+
+    def on_run(idx, out):
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        runs[idx] = (now - last[0], link_fold.launches - last[1],
+                     spray_select.launches - last[2], out[0])
+        last[:] = [now, link_fold.launches, spray_select.launches]
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    link_fold.launches = spray_select.launches = 0
+    t0 = last[0] = time.perf_counter()
+    result, frame = sender.sweep_flows_scenarios(topos, scheds, spec, sp, FAT_PACKETS, keys,
+                                                 FAT_HORIZON, device=dev, on_run=on_run)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    folds, sprays = link_fold.launches, spray_select.launches
+    peak = torch.cuda.max_memory_allocated()
+    want = (len(names), len(FAT_POLICIES), 1, FAT_FLOWS)
+    if tuple(result.cct.shape) != want:
+        raise AssertionError(f"fat-tree: cct {tuple(result.cct.shape)}, expected {want}")
+    if not bool(result.finished.all()):
+        raise AssertionError(f"fat-tree: {int((~result.finished).sum())} flows did not finish")
+    for (c, p, d), (run_s, run_folds, run_sprays, r) in sorted(runs.items()):
+        ticks = int(r.ticks_run)
+        cct = r.cct.cpu().numpy()
+        print(f"[fat-tree] {names[c]} / {FAT_POLICIES[p]}: ticks {ticks}, "
+              f"{1e3 * run_s / ticks:.4f} ms/tick, cct p50 {np.percentile(cct, 50)} p99 "
+              f"{np.percentile(cct, 99)} max {cct.max()}, link_fold launches {run_folds}, "
+              f"spray_select launches {run_sprays}")
+        if run_folds < 2 * ticks or (FAT_POLICIES[p] == "WAM") != (run_sprays > 0):
+            raise AssertionError(f"fat-tree {names[c]} / {FAT_POLICIES[p]}: the run did not "
+                                 f"go through its kernels")
+    rows["link_fold"]["launches"] += folds
+    rows["spray_select"]["launches"] += sprays
+    ser = series(frame_select(frame, (1, 1, 0)))
+    for name, x in ser.items():
+        if not np.isfinite(x).all():
+            raise AssertionError(f"fat-tree: telemetry channel {name} is not finite")
+    ticks = int(result.ticks_run.sum())
+    print(f"[fat-tree] family of {len(names)} scenarios x {len(FAT_POLICIES)} policies x 1 draw "
+          f"x {FAT_FLOWS} flows: {ticks} ticks in {secs:.3f} s ({1e3 * secs / ticks:.4f} ms/tick "
+          f"with telemetry every {FAT_TELEMETRY['stride']}), peak memory {peak} B, cct digest "
+          f"{_digest(result.cct)}; launches link_fold {folds}, spray_select {sprays}; "
+          f"inter_pod_incast / WAM telemetry: {len(ser['tick'])} samples, hottest link queue "
+          f"p99 {np.percentile(ser['link_queue'].max(axis=-1), 99)}")
+
+    stride_tick_telemetry_waits(family["inter_pod_incast"][0], dev)
+    print("[fat-tree] a stride tick's link telemetry and record at full width: no host wait "
+          "(torch sync debug mode 'error')")
+
+    # repeats of two slices: without telemetry, and with the plain spray
+    spec_bare = dataclasses.replace(spec, telemetry=None)
+    wam = sender.sender_params(Policy.WAM, rate=FAT_RATE)
+    inc, flap = names.index("inter_pod_incast"), names.index("core_link_flap")
+    topo, sched = family["inter_pod_incast"]
+    bare = sender.run_flows(topo, sched, spec_bare, wam, FAT_PACKETS, keys[0], FAT_HORIZON,
+                            device=dev)
+    _equal_runs(bare, frame_select(result, (inc, 1, 0)),
+                "inter_pod_incast / WAM without telemetry against its slice")
+    topo, sched = family["core_link_flap"]
+    plain = sender.run_flows(topo, sched, spec, wam, FAT_PACKETS, keys[0], FAT_HORIZON,
+                             device=dev, plain_spray=True)
+    _equal_runs(plain, (frame_select(result, (flap, 1, 0)), frame_select(frame, (flap, 1, 0))),
+                "core_link_flap / WAM with the plain spray against its slice")
+    print("[fat-tree] inter_pod_incast / WAM without telemetry and core_link_flap / WAM with "
+          "the plain spray: every field equal to their slices of the sweep")
+
+    # the card against the CPU at the CPU tests' sizes
+    pols = [Policy[p] for p in SMALL_POLICIES]
+    spec = sender.spec_for_policies(sender.SenderSpec(
+        rate_cap=16, early_exit=True, telemetry=TelemetrySpec(**SMALL_TELEMETRY)), pols)
+    sp = sender.policy_sweep_params(pols, rate=16)
+    keys = prng.split(prng.PRNGKey(5), 2)
+    for name, (topos, scheds) in _small_families().items():
+        t0 = time.perf_counter()
+        card = sender.sweep_flows_scenarios(topos, scheds, spec, sp, SMALL_PACKETS, keys,
+                                            SMALL_HORIZON, device=dev)
+        torch.cuda.synchronize()
+        t_card = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        cpu = sender.sweep_flows_scenarios(topos, scheds, spec, sp, SMALL_PACKETS, keys,
+                                           SMALL_HORIZON, device="cpu")
+        _equal_runs(card, cpu, f"{name} family, the card against the CPU")
+        print(f"[fat-tree] {name} family ({int(topos.route.shape[0])} scenarios x "
+              f"{len(pols)} policies x 2 draws, {int(topos.route.shape[2])} flows, telemetry): "
+              f"every field and frame leaf equal to the CPU run ({t_card:.1f} s on the card, "
+              f"{time.perf_counter() - t0:.1f} s on the CPU)")
 
 
 def _same_decode(a, b, what):
@@ -1108,7 +1414,7 @@ def main() -> int:
     logs = build.build_all()
     for name, log in logs.items():
         print(f"[build] {name}: {log.strip()}")
-    for name in ("spray_select", "lt_encode"):
+    for name in ("spray_select", "lt_encode", "link_fold"):
         report = ptxas_report(logs[name])
         if logs[name] == "up to date":
             print(f"[build] ptxas {name}: built by an earlier run, no report")
@@ -1120,9 +1426,11 @@ def main() -> int:
     print(f"[build] {len(logs)} kernel(s) built in {time.time() - t0:.1f} s")
     message = coded_message()
     rows = {"spray_select": phase_kernels(dev), "lt_encode": phase_lt_encode(dev, message),
-            "flash_attention": phase_flash_attention(dev), "flash_decode": phase_flash_decode(dev)}
+            "flash_attention": phase_flash_attention(dev), "flash_decode": phase_flash_decode(dev),
+            "link_fold": phase_link_fold(dev)}
     phase_goldens(dev)
     phase_wide(dev, rows)
+    phase_fat_tree(dev, rows)
     phase_coded(dev, rows, message)
     phase_router(dev, rows)
     phase_dense(dev, rows)

@@ -1,6 +1,6 @@
-"""Where the time goes in the coded, router and dense cells, on one NVIDIA card.
+"""Where the time goes in the coded, router, dense and fat-tree cells, on one NVIDIA card.
 
-    python3 scripts/profile_cells.py --cell coded|router|prefill|decode [--steps N]
+    python3 scripts/profile_cells.py --cell coded|router|prefill|decode|fattree [--steps N]
 
 Runs one cell of `chip_smoke.py` under `torch.profiler` and prints the
 wall time per step, the card's busy and idle shares, the device
@@ -8,9 +8,12 @@ operations per step, and those that take the most device time.  A step
 is one full-width message encoded on the card from host memory and
 peel-decoded on the host (`coded`, default 2), one router window of
 `simulate_window` + `report` (`router`, default 50), one full-width
-qwen3-8b prefill of 4 x 2,048 tokens (`prefill`, default 3) or one
-decode step of those 4 sequences after it (`decode`, default 20).  The
-wide cell has its own tool, `tools/torch_profile_wide.py`.
+qwen3-8b prefill of 4 x 2,048 tokens (`prefill`, default 3), one
+decode step of those 4 sequences after it (`decode`, default 20), or one
+tick of WAM on the full-width fat-tree family's `inter_pod_uniform`
+scenario with the family's telemetry (`fattree`, default 64: one run of
+that many ticks, early exit off).  The wide cell has its own tool,
+`tools/torch_profile_wide.py`.
 """
 from __future__ import annotations
 
@@ -29,8 +32,9 @@ from torch.profiler import ProfilerActivity, profile  # noqa: E402
 
 from repro_torch.train.step import build_decode_step, build_prefill_step  # noqa: E402
 
-UNIT = {"coded": "message", "router": "window", "prefill": "prefill", "decode": "step"}
-STEPS = {"coded": 2, "router": 50, "prefill": 3, "decode": 20}
+UNIT = {"coded": "message", "router": "window", "prefill": "prefill", "decode": "step",
+        "fattree": "tick"}
+STEPS = {"coded": 2, "router": 50, "prefill": 3, "decode": 20, "fattree": 64}
 
 
 def _device_us(evt) -> float:
@@ -58,8 +62,22 @@ def _dense_step(cell: str, dev):
     return lambda: decode(params, tok[:, None], pos, cache)  # the same slot each step
 
 
-def _step(cell: str, dev):
-    """One step of the cell, built once."""
+def _fat_tree_run(ticks: int, dev):
+    """WAM on the full-width inter_pod_uniform scenario for `ticks` ticks."""
+    topo, sched = cs.fat_family()["inter_pod_uniform"]
+    spec = cs.sender.SenderSpec(rate_cap=cs.FAT_RATE,
+                                telemetry=cs.TelemetrySpec(**cs.FAT_TELEMETRY))
+    sp = cs.sender.sender_params(cs.Policy.WAM, rate=cs.FAT_RATE)
+    key = cs.prng.split(cs.prng.PRNGKey(7), 1)[0]
+    return lambda: cs.sender.run_flows(topo, sched, spec, sp, cs.FAT_PACKETS, key, ticks,
+                                       device=dev)
+
+
+def _step(cell: str, dev, steps: int):
+    """One step of the cell, built once (for `fattree`, one run of `steps`
+    ticks)."""
+    if cell == "fattree":
+        return _fat_tree_run(steps, dev)
     if cell in ("prefill", "decode"):
         return _dense_step(cell, dev)
     if cell == "coded":
@@ -79,7 +97,7 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--cell", choices=tuple(UNIT), required=True)
     ap.add_argument("--steps", type=int, default=None,
-                    help="steps to profile (default: coded 2, router 50, prefill 3, "
+                    help="steps to profile (default: coded 2, router 50, prefill 3, fattree 64, "
                     "decode 20)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -89,12 +107,13 @@ def main() -> int:
     unit = UNIT[args.cell]
     dev = torch.device("cuda")
     print(cs.card_line())
-    step = _step(args.cell, dev)
+    step = _step(args.cell, dev, steps)
     step()  # warm up: kernel build, allocator, CUDA context
     torch.cuda.synchronize()
+    calls = 1 if args.cell == "fattree" else steps  # a fattree call runs every tick
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for _ in range(steps):
+        for _ in range(calls):
             step()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6

@@ -4,7 +4,9 @@ The reference's parameter objects are handed over as dicts of numpy
 arrays plus their static ints (the tests extract them), so this module
 never sees a JAX type.  A JAX PRNG key is a ``uint32[2]`` array.  A model's
 parameter or cache tree is a nested dict of numpy arrays (bfloat16 arrays
-included, recognised by their dtype's name).
+included, recognised by their dtype's name).  Topologies and schedules may
+be stacked on leading sweep axes (`scenarios.stack_scenarios`), and so
+may telemetry frames.
 """
 from __future__ import annotations
 
@@ -15,10 +17,11 @@ import torch
 
 from repro_torch.net.fabric import FabricParams
 from repro_torch.net.sender import SenderParams
+from repro_torch.net.telemetry import TelemetryFrame
 from repro_torch.net.topology import EventSchedule, TopologyParams
 
 __all__ = ["fabric_params", "topology_params", "event_schedule", "sender_params",
-           "prng_key", "model_params", "model_cache"]
+           "telemetry_frame", "prng_key", "model_params", "model_cache"]
 
 
 def _tensors(arrays: Mapping[str, np.ndarray], names, device):
@@ -54,11 +57,21 @@ def sender_params(arrays: Mapping[str, np.ndarray]) -> SenderParams:
                            for k, v in arrays.items()})
 
 
+def telemetry_frame(arrays: Mapping[str, np.ndarray], device=None) -> TelemetryFrame:
+    """A reference frame (any leading sweep axes) leaf for leaf; the uint32
+    spray counter `prev_j` becomes the port's int64 of the same value."""
+    out = {k: torch.as_tensor(np.array(v), device=device) for k, v in arrays.items()}
+    out["prev_j"] = torch.as_tensor(np.asarray(arrays["prev_j"]).astype(np.int64),
+                                    device=device)
+    return TelemetryFrame(**out)
+
+
 def prng_key(key: np.ndarray, device=None) -> torch.Tensor:
-    """A legacy ``uint32[2]`` key as the port's int64 key tensor."""
+    """A legacy ``uint32[2]`` key (or a ``[..., 2]`` stack of them) as the
+    port's int64 key tensor."""
     key = np.asarray(key)
-    if key.shape != (2,) or key.dtype != np.uint32:
-        raise ValueError(f"expected a uint32[2] key, got {key.dtype}{key.shape}")
+    if key.ndim < 1 or key.shape[-1] != 2 or key.dtype != np.uint32:
+        raise ValueError(f"expected uint32[..., 2] keys, got {key.dtype}{key.shape}")
     return torch.as_tensor(key.astype(np.int64), device=device)
 
 

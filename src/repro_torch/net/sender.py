@@ -4,9 +4,16 @@
 retransmission debt, the delayed-feedback profile controller, completion
 detection) as a Python loop over ticks.  `run_message` / `run_message_on`
 are its single-flow form and `run_flows` / `run_flows_sized` its F-flow
-form on the shared leaf-spine fabric.  The policy is a concrete id, so
-each run executes only its own branch; the WAM branch launches the
-`spray_select` kernel once per tick for all flows.
+form on a shared fabric.  The policy is a concrete id, so each run
+executes only its own branch; the WAM branch launches the `spray_select`
+kernel once per tick for all flows.  A `TelemetrySpec` on the spec records
+a `TelemetryFrame` as the run goes (`repro_torch.net.telemetry`).
+
+The sweeps (`sweep_message`, `sweep_flows`, `sweep_flows_scenarios`) take
+`SenderParams` with a leading point axis P (`stack_params`,
+`policy_sweep_params`) and D PRNG keys, and run each (scenario, point,
+draw) as its own run, one after another: every slice is bit for bit the
+unbatched run, and results gain the reference's leading axes.
 
 Random numbers follow the reference's key streams exactly: the per-tick
 keys are split from one loop key up front (`tick_keys`), and each chunk of
@@ -31,16 +38,21 @@ from repro_torch.net.policies import (ALL_POLICIES, BASELINE_POLICIES, Policy,
                                       uses_rng)
 from repro_torch.net.policy_state import (PolicyState, init_policy_state,
                                           update_policy_state)
+from repro_torch.net.telemetry import (TelemetryFrame, TelemetrySpec, frame_select,
+                                       init_frame, record)
 from repro_torch.net.topology import (EventSchedule, TopologyParams,
-                                      init_shared_fabric, shared_fabric_tick)
+                                      init_shared_fabric, link_telemetry,
+                                      shared_fabric_tick)
 from repro_torch.numerics import fold_sum
 from repro_torch.random import M32
 
 __all__ = ["Policy", "BASELINE_POLICIES", "ALL_POLICIES", "SenderSpec",
-           "SenderParams", "SimResult", "sender_params", "spec_for_policies",
-           "completion_need", "assign_paths", "tick_keys", "fabric_quiescent",
-           "run_sender", "run_message_on", "run_message", "run_flows",
-           "run_flows_sized", "resolve_device", "to_device"]
+           "SenderParams", "SimResult", "sender_params", "stack_params",
+           "policy_sweep_params", "spec_for_policies", "completion_need",
+           "assign_paths", "tick_keys", "fabric_quiescent", "run_sender",
+           "run_message_on", "run_message", "run_flows", "run_flows_sized",
+           "sweep_message", "sweep_flows", "sweep_flows_scenarios",
+           "resolve_device", "to_device"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -53,13 +65,16 @@ class SenderSpec:
     rate_cap: int = 32
     early_exit: bool = False
     exit_chunk: int = 64
-    telemetry: object | None = None
+    telemetry: TelemetrySpec | None = None
     state_blocks: Tuple[str, ...] = ()
 
 
 @dataclasses.dataclass(frozen=True)
 class SenderParams:
-    """Sender knobs as concrete Python values (the policy picks a branch)."""
+    """Sender knobs as concrete Python values (the policy picks a branch),
+    or, stacked by `stack_params` for a sweep, as tensors with a leading
+    point axis (int32 policy, rate and ctrl_interval, float32 cwnd and
+    code_overhead, uint32 seeds held in int64)."""
 
     policy: int
     rate: int
@@ -79,6 +94,38 @@ def sender_params(policy: Policy | int, *, rate: int = 32, cwnd: float = 256.0,
                         sa=int(seed[0]) & M32, sb=int(seed[1]) & M32)
 
 
+_PARAM_DTYPES = dict(policy=torch.int32, rate=torch.int32, cwnd=torch.float32,
+                     code_overhead=torch.float32, ctrl_interval=torch.int32,
+                     sa=torch.int64, sb=torch.int64)
+
+
+def stack_params(params: Sequence[SenderParams]) -> SenderParams:
+    """Stack scalar params on a new leading sweep axis."""
+    params = list(params)
+    if not params:
+        raise ValueError("need at least one SenderParams to stack")
+    return SenderParams(**{
+        name: torch.tensor([getattr(p, name) for p in params], dtype=dtype)
+        for name, dtype in _PARAM_DTYPES.items()})
+
+
+def policy_sweep_params(policies: Sequence[Policy] = BASELINE_POLICIES, **kw) -> SenderParams:
+    """`SenderParams` with a leading policy axis (default: the five
+    baseline policies); pair `ALL_POLICIES` with `spec_for_policies`."""
+    return stack_params([sender_params(p, **kw) for p in policies])
+
+
+def _points(sp: SenderParams) -> list:
+    """The scalar params of each point of a stacked `sp`."""
+    if not torch.is_tensor(sp.policy) or sp.policy.dim() != 1:
+        raise ValueError("a sweep takes SenderParams stacked on one leading axis "
+                         "(stack_params / policy_sweep_params)")
+    P = int(sp.policy.shape[0])
+    return [SenderParams(**{
+        name: (float if dtype.is_floating_point else int)(getattr(sp, name)[i])
+        for name, dtype in _PARAM_DTYPES.items()}) for i in range(P)]
+
+
 def spec_for_policies(spec: SenderSpec, policies: Sequence[Policy | int]) -> SenderSpec:
     return dataclasses.replace(spec, state_blocks=blocks_for(policies))
 
@@ -91,18 +138,27 @@ class SimResult:
     final_b: torch.Tensor        # int32[*lead, n]
     received: torch.Tensor       # float32[*lead]
     finished: torch.Tensor       # bool[*lead]
-    link_served: torch.Tensor    # float32[L] or [0]
-    link_busy: torch.Tensor      # float32[L] or [0]
-    ticks_run: int = 0           # ticks executed (fewer than the horizon
-                                 # when early exit skipped settled ones)
+    link_served: torch.Tensor    # float32[*sweep, L] or [*sweep, 0]
+    link_busy: torch.Tensor      # float32[*sweep, L] or [*sweep, 0]
+    ticks_run: torch.Tensor      # int64[*sweep]: ticks executed (fewer than
+                                 # the horizon when early exit skipped
+                                 # settled ones)
+
+
+def _on(t: torch.Tensor, device: torch.device) -> bool:
+    return t.device.type == device.type and (device.index is None
+                                             or t.device.index == device.index)
 
 
 def to_device(obj, device):
-    """A copy of a dataclass of tensors with every tensor on `device`."""
-    return dataclasses.replace(obj, **{
-        f.name: getattr(obj, f.name).to(device)
-        for f in dataclasses.fields(obj)
-        if isinstance(getattr(obj, f.name), torch.Tensor)})
+    """A dataclass of tensors with every tensor on `device`: `obj` itself
+    when they all are (so what it caches stays), else a copy."""
+    device = torch.device(device)
+    names = [f.name for f in dataclasses.fields(obj)
+             if isinstance(getattr(obj, f.name), torch.Tensor)]
+    if all(_on(getattr(obj, k), device) for k in names):
+        return obj
+    return dataclasses.replace(obj, **{k: getattr(obj, k).to(device) for k in names})
 
 
 def completion_need(n_packets, coded: bool, code_overhead: float,
@@ -168,12 +224,17 @@ class _Carry:
     pstate: PolicyState
 
 
-def _settled(spec: SenderSpec, c: _Carry) -> bool:
-    """Every flow done, ARQ debt drained, fabric quiescent (absorbing)."""
+def _settled_on_device(spec: SenderSpec, c: _Carry) -> torch.Tensor:
+    """Every flow done, ARQ debt drained, fabric quiescent (absorbing), as
+    a device predicate."""
     done = (c.done_at >= 0).all() & fabric_quiescent(c.fabric)
     if not spec.coded:
         done = done & (c.debt == 0).all()
-    return bool(done)
+    return done
+
+
+def _settled(spec: SenderSpec, c: _Carry) -> bool:
+    return bool(_settled_on_device(spec, c))
 
 
 def run_sender(spec: SenderSpec, sp: SenderParams, n_packets, horizon: int, *,
@@ -182,16 +243,27 @@ def run_sender(spec: SenderSpec, sp: SenderParams, n_packets, horizon: int, *,
                ecmp_path: torch.Tensor, flow_keys: bool, received_fn: Callable,
                dropped_fn: Callable, k_loop: torch.Tensor,
                link_fn: Callable | None = None,
-               plain_spray: bool = False) -> SimResult:
+               tel_link_fn: Callable | None = None, links: int = 0,
+               plain_spray: bool = False):
     """The sender tick core over F flows (F = 1 for one message).
 
     stepper(fabric, arrivals[F, n], u[mole_size]) -> (fabric', fb) is the
     fabric.  ``flow_keys`` splits each tick's lane key into one key per
     flow (the coupled-flow engine) instead of using it as is.
+    ``tel_link_fn(fabric)`` reads the per-link telemetry (queue, served,
+    dropped, ecn) of the fabric's ``links`` links, where it has them.
     ``plain_spray`` sends the WAM branch through the kernel's plain version
-    even on the card; it exists so a test can hold the kernel to it."""
-    if spec.telemetry is not None:
-        raise NotImplementedError("telemetry is not ported yet")
+    even on the card; it exists so a test can hold the kernel to it.
+
+    With ``spec.telemetry`` set the run returns ``(SimResult, frame)``: on
+    every tick t with ``t % stride == 0`` the frame records the state after
+    the tick where the run had not settled before it (a device predicate,
+    and the tick is written with a fill, so a stride tick adds no wait for
+    the card).  Other ticks skip `record`, which there would rewrite every
+    slot with its own value."""
+    tspec = spec.telemetry
+    if tspec is not None and not isinstance(tspec, TelemetrySpec):
+        raise TypeError(f"SenderSpec.telemetry must be a TelemetrySpec, got {type(tspec)}")
     dev = latency_f.device
     F = int(spray0.j.shape[0])
     lead = (F,)
@@ -235,11 +307,13 @@ def run_sender(spec: SenderSpec, sp: SenderParams, n_packets, horizon: int, *,
             pstate = update_policy_state(pstate, ecn_rate=ecn_rate, loss_rate=loss_rate,
                                          rtt_sample=rtt, seen=fb["sent"] > 0)
         debt, known_delivered, known_dropped = c.debt, c.known_delivered, c.known_dropped
-        if not spec.coded:
+        if not spec.coded or tspec is not None:
+            # a coded run's debt changes nothing; only telemetry reads it
             fb_dropped = fold_sum(fb["dropped"])
             unsent = torch.clamp_min(npk - c.sent_sched, 0.0)
             debt = (c.debt + fb_dropped) - torch.clamp_min(k_emit - unsent, 0.0)
             debt = torch.clamp_min(debt, 0.0)
+        if not spec.coded:
             known_delivered = known_delivered + fb["landed"]
             known_dropped = known_dropped + fb_dropped
         sent_sched = c.sent_sched + k_emit
@@ -253,7 +327,24 @@ def run_sender(spec: SenderSpec, sp: SenderParams, n_packets, horizon: int, *,
         return _Carry(fabric, ctrl, spray, sent_sched, debt, done_at, sent_pp,
                       known_delivered, known_dropped, pstate)
 
-    def run(c: _Carry, keys: torch.Tensor) -> _Carry:
+    m = 1 << spec.ell
+
+    def observe(c: _Carry, tel: TelemetryFrame, u, rand_lanes):
+        """One tick, recorded on stride ticks where the run had not
+        settled before it."""
+        t_pre = c.fabric.t
+        if t_pre % tspec.stride:
+            return tick(c, u, rand_lanes), tel
+        capture = ~_settled_on_device(spec, c)
+        c = tick(c, u, rand_lanes)
+        link = tel_link_fn(c.fabric) if tspec.links and tel_link_fn is not None else None
+        tel = record(tspec, tel, capture, tick=t_pre, m=m, alloc=c.ctrl.profile.b,
+                     sent_pp=c.sent_pp, dropped_pp=dropped_fn(c.fabric), debt=c.debt,
+                     emitted=c.sent_sched, received=received_fn(c.fabric), j=c.spray.j,
+                     link=link, pen=c.pstate.penalty, ccw=c.pstate.ccw)
+        return c, tel
+
+    def run(c: _Carry, tel, keys: torch.Tensor):
         """Run one tick per row of keys [T, 2, 2], drawing the chunk's
         random numbers in one batched call."""
         u = prng.uniform(keys[:, 1], (mole_size,))
@@ -262,20 +353,29 @@ def run_sender(spec: SenderSpec, sp: SenderParams, n_packets, horizon: int, *,
             ka = prng.split(keys[:, 0], F) if flow_keys else keys[:, 0].unsqueeze(1)
             lanes = prng.randint(ka, (spec.rate_cap,), 0, rng_hi)
         for i in range(keys.shape[0]):
-            c = tick(c, u[i], None if lanes is None else lanes[i])
-        return c
+            lane_i = None if lanes is None else lanes[i]
+            if tel is None:
+                c = tick(c, u[i], lane_i)
+            else:
+                c, tel = observe(c, tel, u[i], lane_i)
+        return c, tel
 
     done_at0 = torch.where(need <= 0.0, 0, -1).to(torch.int32).expand(lead).clone()
     carry = _Carry(fabric0, ctrl0, spray0, zeros, zeros, done_at0,
                    torch.zeros(lead + (n,), device=dev), zeros, zeros, pstate0)
+    tel = None
+    if tspec is not None:
+        tel = init_frame(tspec, lead, n, links if tel_link_fn is not None else 0,
+                         pen_width=pstate0.penalty.shape[-1],
+                         ccw_width=pstate0.ccw.shape[-1], device=dev)
     chunk = max(1, min(spec.exit_chunk, horizon))
     n_full, rem = divmod(horizon, chunk)
     i = 0
     while i < n_full and not (spec.early_exit and _settled(spec, carry)):
-        carry = run(carry, tkeys[i * chunk:(i + 1) * chunk])
+        carry, tel = run(carry, tel, tkeys[i * chunk:(i + 1) * chunk])
         i += 1
     if rem:
-        carry = run(carry, tkeys[n_full * chunk:])
+        carry, tel = run(carry, tel, tkeys[n_full * chunk:])
     ticks_run = i * chunk + rem
 
     done_at = carry.done_at
@@ -285,23 +385,37 @@ def run_sender(spec: SenderSpec, sp: SenderParams, n_packets, horizon: int, *,
         link_served, link_busy = link_fn(carry.fabric)
     else:
         link_served = link_busy = torch.zeros((0,), device=dev)
-    return SimResult(cct=cct, sent_total=carry.sent_pp,
-                     dropped_total=dropped_fn(carry.fabric),
-                     final_b=carry.ctrl.profile.b, received=received_fn(carry.fabric),
-                     finished=done_at >= 0, link_served=link_served,
-                     link_busy=link_busy, ticks_run=ticks_run)
+    result = SimResult(cct=cct, sent_total=carry.sent_pp,
+                       dropped_total=dropped_fn(carry.fabric),
+                       final_b=carry.ctrl.profile.b, received=received_fn(carry.fabric),
+                       finished=done_at >= 0, link_served=link_served,
+                       link_busy=link_busy,
+                       ticks_run=torch.tensor(ticks_run, dtype=torch.int64, device=dev))
+    return result if tel is None else (result, tel)
 
 
-def _squeeze_flow(r: SimResult) -> SimResult:
-    return dataclasses.replace(r, **{
+_FLOW_CHANNELS = ("alloc", "sent_pp", "dropped_pp", "debt", "emitted", "received", "disc",
+                  "pstate_pen", "pstate_ccw")
+
+
+def _squeeze_flow(out):
+    """Drop the flow axis of 1 of a single-flow run (and of its frame)."""
+    r, tel = out if isinstance(out, tuple) else (out, None)
+    r = dataclasses.replace(r, **{
         k: getattr(r, k)[0] for k in ("cct", "sent_total", "dropped_total",
                                       "final_b", "received", "finished")})
+    if tel is None:
+        return r
+    tel = dataclasses.replace(
+        tel, prev_sent=tel.prev_sent[0], prev_j=tel.prev_j[0],
+        **{k: getattr(tel, k)[:, 0] for k in _FLOW_CHANNELS})
+    return r, tel
 
 
 def run_message_on(fabric0, stepper, latency: torch.Tensor, spec: SenderSpec,
                    sp: SenderParams, n_packets: int, key: torch.Tensor,
                    horizon: int = 4096, *, mole_size: int, received_fn=None,
-                   dropped_fn=None) -> SimResult:
+                   dropped_fn=None):
     """One flow over an arbitrary fabric stepper.
 
     ``stepper(state, arrivals[1, n], u[mole_size])`` advances the fabric one
@@ -334,7 +448,7 @@ def run_message_on(fabric0, stepper, latency: torch.Tensor, spec: SenderSpec,
 
 def run_message(params: FabricParams, spec: SenderSpec, sp: SenderParams,
                 n_packets: int, key: torch.Tensor, horizon: int = 4096, *,
-                device="cuda") -> SimResult:
+                device="cuda"):
     """One message on the independent-bundle fabric."""
     dev = resolve_device(device)
     params = to_device(params, dev)
@@ -375,13 +489,14 @@ def _run_flows(topo: TopologyParams, sched: EventSchedule, spec: SenderSpec,
         latency_f=topo.latency.to(torch.float32), spray0=spray0, ctrl0=ctrl0,
         ecmp_path=ecmp, flow_keys=True, received_fn=lambda s: s.received,
         dropped_fn=lambda s: s.dropped, k_loop=keys[1],
-        link_fn=lambda s: (s.link_served, s.link_busy), plain_spray=plain_spray)
+        link_fn=lambda s: (s.link_served, s.link_busy),
+        tel_link_fn=lambda s: link_telemetry(topo, s), links=topo.links,
+        plain_spray=plain_spray)
 
 
 def run_flows(topo: TopologyParams, sched: EventSchedule, spec: SenderSpec,
               sp: SenderParams, n_packets: int, key: torch.Tensor,
-              horizon: int = 4096, *, device="cuda",
-              plain_spray: bool = False) -> SimResult:
+              horizon: int = 4096, *, device="cuda", plain_spray: bool = False):
     """F coupled flows, one n_packets message each, on one shared fabric;
     flow f sprays with seed (sa + f * 0x9E3779B9, sb + 2f)."""
     return _run_flows(topo, sched, spec, sp, n_packets, key, horizon, device,
@@ -390,7 +505,88 @@ def run_flows(topo: TopologyParams, sched: EventSchedule, spec: SenderSpec,
 
 def run_flows_sized(topo: TopologyParams, sched: EventSchedule, spec: SenderSpec,
                     sp: SenderParams, n_packets, key: torch.Tensor,
-                    horizon: int = 4096, *, device="cuda") -> SimResult:
+                    horizon: int = 4096, *, device="cuda"):
     """`run_flows` with a per-flow message size (int or int tensor [F]);
     size-0 flows complete at tick 0."""
     return _run_flows(topo, sched, spec, sp, n_packets, key, horizon, device, False)
+
+
+def _stack_runs(runs: list, lead: Tuple[int, ...]):
+    """Stack runs (SimResults, or (SimResult, frame) pairs) given in
+    row-major order of the sweep axes `lead` onto those axes."""
+    def stack(objs):
+        return dataclasses.replace(objs[0], **{
+            f.name: torch.stack([getattr(o, f.name) for o in objs]).reshape(
+                lead + tuple(getattr(objs[0], f.name).shape))
+            for f in dataclasses.fields(objs[0])})
+
+    if isinstance(runs[0], tuple):
+        return stack([r for r, _ in runs]), stack([t for _, t in runs])
+    return stack(runs)
+
+
+def _keys(keys: torch.Tensor, dev) -> torch.Tensor:
+    keys = torch.as_tensor(keys).to(dev)
+    if keys.dim() != 2 or keys.shape[-1] != 2:
+        raise ValueError(f"keys must be [D, 2], got {tuple(keys.shape)}")
+    return keys
+
+
+def _sweep(run_one, points, keys, scenarios, on_run=None):
+    """Every (scenario, point, draw) run in row-major order, each reported
+    to ``on_run(index, out)`` as it finishes."""
+    runs = []
+    for c, scenario in enumerate(scenarios):
+        for p, point in enumerate(points):
+            for d in range(keys.shape[0]):
+                out = run_one(scenario, point, keys[d])
+                if on_run is not None:
+                    on_run((c, p, d), out)
+                runs.append(out)
+    return runs
+
+
+def sweep_message(params: FabricParams, spec: SenderSpec, sp: SenderParams,
+                  n_packets: int, keys: torch.Tensor, horizon: int = 4096, *,
+                  device="cuda"):
+    """`run_message` over P stacked points x D keys: fields gain [P, D]."""
+    points, dev = _points(sp), resolve_device(device)
+    params, keys = to_device(params, dev), _keys(keys, dev)
+    runs = _sweep(lambda prm, p, k: run_message(prm, spec, p, n_packets, k, horizon,
+                                                 device=dev),
+                  points, keys, [params])
+    return _stack_runs(runs, (len(points), keys.shape[0]))
+
+
+def sweep_flows(topo: TopologyParams, sched: EventSchedule, spec: SenderSpec,
+                sp: SenderParams, n_packets: int, keys: torch.Tensor,
+                horizon: int = 4096, *, device="cuda"):
+    """`run_flows` over P stacked points x D keys: ``cct[P, D, F]``."""
+    points, dev = _points(sp), resolve_device(device)
+    topo, sched, keys = to_device(topo, dev), to_device(sched, dev), _keys(keys, dev)
+    runs = _sweep(lambda ts, p, k: _run_flows(*ts, spec, p, n_packets, k, horizon, dev,
+                                              False),
+                  points, keys, [(topo, sched)])
+    return _stack_runs(runs, (len(points), keys.shape[0]))
+
+
+def sweep_flows_scenarios(topos: TopologyParams, scheds: EventSchedule, spec: SenderSpec,
+                          sp: SenderParams, n_packets: int, keys: torch.Tensor,
+                          horizon: int = 4096, *, device="cuda",
+                          on_run: Callable | None = None):
+    """`sweep_flows` over C stacked scenarios (`scenarios.stack_scenarios`):
+    ``cct[C, P, D, F]``; scenario c runs exactly ``sweep_flows(topos[c],
+    scheds[c], ...)``, and ``on_run((c, p, d), out)`` is called after each
+    run."""
+    points, dev = _points(sp), resolve_device(device)
+    C = int(topos.route.shape[0])
+    if scheds.cap_scale.dim() != 3 or int(scheds.cap_scale.shape[0]) != C:
+        raise ValueError(f"{C} topologies need {C} stacked schedules, got "
+                         f"{tuple(scheds.cap_scale.shape)}")
+    keys = _keys(keys, dev)
+    scenarios = [(to_device(frame_select(topos, c), dev),
+                  to_device(frame_select(scheds, c), dev)) for c in range(C)]
+    runs = _sweep(lambda ts, p, k: _run_flows(*ts, spec, p, n_packets, k, horizon, dev,
+                                              False),
+                  points, keys, scenarios, on_run)
+    return _stack_runs(runs, (C, len(points), keys.shape[0]))

@@ -1,14 +1,16 @@
-"""Shared-fabric leaf-spine engine: flows that contend on shared links.
+"""Shared-fabric engine: flows that contend on shared links.
 
 F flows map their n logical paths onto shared links through a routing
 matrix ``route[hop, flow, path] -> link``; every link runs one fluid FIFO
-with tail drop and ECN, fed by the sum of all traffic crossing it.
+with tail drop and ECN, fed by the sum of all traffic crossing it.  Two
+builders make the matrix: `leaf_spine` (2 hops) and `fat_tree` (4 hops over
+a 3-tier multi-pod Clos, `FatTreeGrid`).
 
 Float association follows the jitted reference exactly:
 
   * a per-link sum folds the (hop, flow, path) contributions onto the
     link's base value (background backlog or arrivals) in ascending
-    flattened order (`LinkSegments`);
+    flattened order (`LinkSegments`, the `link_fold` kernel on the card);
   * deliveries fold onto the arrival ring path by path in ascending order;
   * a multiply that XLA fuses into the add or subtract consuming it is one
     rounding (`numerics.fma32`).
@@ -24,13 +26,15 @@ import functools
 import numpy as np
 import torch
 
+from repro_torch.kernels.link_fold import LinkSegments, link_fold, link_segments
 from repro_torch.net.fabric import feedback_rings, ring_deposit
 from repro_torch.numerics import fma32, fold_sum
 
 __all__ = ["TopologyParams", "EventSchedule", "SharedFabricState", "LinkSegments",
-           "leaf_spine", "null_schedule", "uplink_id", "downlink_id",
-           "init_shared_fabric", "link_segments", "scatter_delivery",
-           "shared_fabric_tick", "link_backlog", "link_telemetry"]
+           "leaf_spine", "FatTreeGrid", "fat_tree", "null_schedule", "uplink_id",
+           "downlink_id", "init_shared_fabric", "link_segments", "scatter_delivery",
+           "shared_fabric_tick", "single_flow_stepper", "link_backlog",
+           "link_telemetry"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -77,29 +81,6 @@ class EventSchedule:
     @property
     def horizon(self) -> int:
         return int(self.cap_scale.shape[0])
-
-
-@dataclasses.dataclass(frozen=True)
-class LinkSegments:
-    """CSR of the routing matrix, padded: row l lists the flattened
-    (hop, flow, path) indices that cross link l in ascending order, padded
-    with the index one past the end (which reads a zero)."""
-
-    index: torch.Tensor  # int64[L, D]
-    depth: int           # D: the most entries any link has
-
-
-def link_segments(route: torch.Tensor, links: int) -> LinkSegments:
-    flat = route.reshape(-1).cpu().numpy().astype(np.int64)
-    order = np.argsort(flat, kind="stable")
-    counts = np.bincount(flat, minlength=links)
-    depth = int(counts.max()) if flat.size else 0
-    index = np.full((links, max(depth, 1)), flat.size, dtype=np.int64)
-    starts = np.concatenate([[0], np.cumsum(counts)[:-1]])
-    pos = np.arange(flat.size) - np.repeat(starts, counts)
-    index[flat[order], pos] = order
-    return LinkSegments(index=torch.as_tensor(index, device=route.device),
-                        depth=depth)
 
 
 def null_schedule(links: int, horizon: int = 1, device=None) -> EventSchedule:
@@ -160,6 +141,159 @@ def leaf_spine(n_leaves: int, n_spines: int, flow_pairs, *,
 
 
 @dataclasses.dataclass(frozen=True)
+class FatTreeGrid:
+    """Host-side descriptor of a 3-tier fat-tree (multi-pod Clos).
+
+    Pods of `leaves_per_pod` leaves and `spines_per_pod` spines; spine s of
+    every pod connects to the `cores_per_spine` cores of core plane s.  An
+    inter-pod flow has n = spines_per_pod * cores_per_spine 4-hop paths:
+    path (s, j) climbs leaf -> spine s -> core (s, j) and descends to spine
+    s of the destination pod -> leaf.  Intra-pod flows turn at the spine:
+    their middle hops ride the infinite-capacity bypass link (id
+    ``links - 1``), so one [hop, flow, path] matrix covers both.
+
+    Link ids: leaf->spine uplinks [0, P*Lp*S), spine->core uplinks
+    (next P*S*C), core->spine downlinks (next P*S*C), spine->leaf
+    downlinks (next P*S*Lp), then the bypass.
+    """
+
+    n_pods: int
+    leaves_per_pod: int
+    spines_per_pod: int
+    cores_per_spine: int
+
+    def __post_init__(self):
+        if min(self.n_pods, self.leaves_per_pod, self.spines_per_pod,
+               self.cores_per_spine) < 1:
+            raise ValueError("every fat-tree dimension must be >= 1")
+
+    @property
+    def n_leaves(self) -> int:
+        return self.n_pods * self.leaves_per_pod
+
+    @property
+    def n_paths(self) -> int:
+        return self.spines_per_pod * self.cores_per_spine
+
+    @property
+    def links(self) -> int:
+        P, Lp = self.n_pods, self.leaves_per_pod
+        S, C = self.spines_per_pod, self.cores_per_spine
+        return 2 * P * Lp * S + 2 * P * S * C + 1
+
+    @property
+    def bypass(self) -> int:
+        return self.links - 1
+
+    # link id helpers, vectorised over numpy int arrays
+
+    def up_leaf_spine(self, pod, leaf, spine):
+        return (pod * self.leaves_per_pod + leaf) * self.spines_per_pod + spine
+
+    def up_spine_core(self, pod, spine, core):
+        base = self.n_pods * self.leaves_per_pod * self.spines_per_pod
+        return base + (pod * self.spines_per_pod + spine) * self.cores_per_spine + core
+
+    def down_core_spine(self, spine, core, pod):
+        P, Lp = self.n_pods, self.leaves_per_pod
+        S, C = self.spines_per_pod, self.cores_per_spine
+        return P * Lp * S + P * S * C + (spine * C + core) * P + pod
+
+    def down_spine_leaf(self, pod, spine, leaf):
+        P, Lp = self.n_pods, self.leaves_per_pod
+        S, C = self.spines_per_pod, self.cores_per_spine
+        return P * Lp * S + 2 * P * S * C + (pod * S + spine) * Lp + leaf
+
+    def pod_of(self, leaf_global):
+        return leaf_global // self.leaves_per_pod
+
+    def tier_slices(self):
+        """name -> slice of the link axis, one per physical tier and the
+        bypass."""
+        P, Lp = self.n_pods, self.leaves_per_pod
+        S, C = self.spines_per_pod, self.cores_per_spine
+        edges = np.cumsum([0, P * Lp * S, P * S * C, P * S * C, P * S * Lp])
+        names = ("leaf_spine_up", "spine_core_up", "core_spine_down", "spine_leaf_down")
+        out = {nm: slice(int(edges[i]), int(edges[i + 1])) for i, nm in enumerate(names)}
+        out["bypass"] = slice(int(edges[4]), int(edges[4]) + 1)
+        return out
+
+
+# capacity, queue limit and ECN threshold of the virtual bypass link:
+# effectively infinite, yet far below float32's loss of integer precision
+_BYPASS_CAPACITY = 1e9
+
+
+def fat_tree(n_pods: int, leaves_per_pod: int, spines_per_pod: int,
+             cores_per_spine: int, flow_pairs, *, uplink_capacity: float = 8.0,
+             downlink_capacity: float | None = None, core_capacity: float | None = None,
+             queue_limit: float = 48.0, ecn_threshold: float = 12.0,
+             latency_ticks: int = 6, intra_latency_ticks: int = 4,
+             degrade_p: float = 0.0, recover_p: float = 0.05,
+             degrade_factor: float = 0.05, fb_delay: int = 8, ring_len: int = 128,
+             device=None) -> TopologyParams:
+    """3-tier fat-tree (see `FatTreeGrid`): flow (src, dst) between global
+    leaves gets n = spines_per_pod * cores_per_spine paths; intra-pod path
+    (s, j) collapses to spine s over the bypass.  `core_capacity` covers
+    both core tiers (default `uplink_capacity`); inter-pod paths take
+    `latency_ticks`, intra-pod ones `intra_latency_ticks`."""
+    grid = FatTreeGrid(n_pods, leaves_per_pod, spines_per_pod, cores_per_spine)
+    if downlink_capacity is None:
+        downlink_capacity = uplink_capacity
+    if core_capacity is None:
+        core_capacity = uplink_capacity
+    if n_pods < 2:
+        raise ValueError("fat_tree needs >= 2 pods (a 1-pod grid has a dead core tier: "
+                         "use leaf_spine)")
+    pairs = np.asarray(flow_pairs, dtype=np.int32)
+    if pairs.ndim != 2 or pairs.shape[1] != 2:
+        raise ValueError("flow_pairs must be a sequence of (src, dst) leaves")
+    if np.any(pairs < 0) or np.any(pairs >= grid.n_leaves):
+        raise ValueError("flow endpoints out of leaf range")
+    if np.any(pairs[:, 0] == pairs[:, 1]):
+        raise ValueError("intra-leaf flows never reach the spine layer")
+    F, n = pairs.shape[0], grid.n_paths
+    Lp, S, C = leaves_per_pod, spines_per_pod, cores_per_spine
+    src_pod, src_leaf = pairs[:, 0] // Lp, pairs[:, 0] % Lp
+    dst_pod, dst_leaf = pairs[:, 1] // Lp, pairs[:, 1] % Lp
+    s = np.repeat(np.arange(S, dtype=np.int32), C)[None, :]  # path q = s * C + j
+    j = np.tile(np.arange(C, dtype=np.int32), S)[None, :]
+    inter = (src_pod != dst_pod)[:, None]
+    hop0 = grid.up_leaf_spine(src_pod[:, None], src_leaf[:, None], s)
+    hop1 = np.where(inter, grid.up_spine_core(src_pod[:, None], s, j), grid.bypass)
+    hop2 = np.where(inter, grid.down_core_spine(s, j, dst_pod[:, None]), grid.bypass)
+    hop3 = grid.down_spine_leaf(dst_pod[:, None], s, dst_leaf[:, None])
+    route = np.stack([hop0, hop1, hop2, hop3]).astype(np.int32)
+
+    tiers = grid.tier_slices()
+    L = grid.links
+    cap = np.empty((L,), np.float32)
+    cap[tiers["leaf_spine_up"]] = uplink_capacity
+    cap[tiers["spine_core_up"]] = core_capacity
+    cap[tiers["core_spine_down"]] = core_capacity
+    cap[tiers["spine_leaf_down"]] = downlink_capacity
+    cap[grid.bypass] = _BYPASS_CAPACITY
+    qlim = np.full((L,), queue_limit, np.float32)
+    ecn = np.full((L,), ecn_threshold, np.float32)
+    qlim[grid.bypass] = ecn[grid.bypass] = _BYPASS_CAPACITY
+    deg_p = np.full((L,), degrade_p, np.float32)
+    deg_p[grid.bypass] = 0.0  # the virtual bypass never degrades
+    latency = np.where(inter, np.int32(latency_ticks),
+                       np.int32(intra_latency_ticks)) * np.ones((F, n), np.int32)
+
+    def t(a):
+        return torch.as_tensor(a, device=device)
+
+    return TopologyParams(
+        route=t(route), capacity=t(cap), queue_limit=t(qlim), ecn_threshold=t(ecn),
+        latency=t(latency.astype(np.int32)), degrade_p=t(deg_p),
+        recover_p=t(np.full((L,), recover_p, np.float32)),
+        degrade_factor=t(np.full((L,), degrade_factor, np.float32)),
+        fb_delay=fb_delay, ring_len=ring_len,
+    )
+
+
+@dataclasses.dataclass(frozen=True)
 class SharedFabricState:
     queue: torch.Tensor        # float32[H, F, n]
     forward: torch.Tensor      # float32[H-1, F, n]
@@ -202,12 +336,9 @@ def init_shared_fabric(topo: TopologyParams) -> SharedFabricState:
 
 def _link_sum(vals: torch.Tensor, seg: LinkSegments, base: torch.Tensor) -> torch.Tensor:
     """base[l] + the values crossing link l, folded onto base in ascending
-    flattened (hop, flow, path) order: [L]."""
-    flat = torch.cat([vals.reshape(-1), vals.new_zeros(1)])
-    acc = base
-    for k in range(seg.depth):
-        acc = acc + flat[seg.index[:, k]]
-    return acc
+    flattened (hop, flow, path) order: [L] (the `link_fold` kernel on the
+    card)."""
+    return link_fold(vals, seg, base)
 
 
 def scatter_delivery(arrive_ring: torch.Tensor, slot: torch.Tensor,
@@ -305,3 +436,17 @@ def link_telemetry(topo: TopologyParams, state: SharedFabricState):
     q = link_backlog(topo, state)
     over = (q > topo.ecn_threshold).to(torch.float32)
     return q, state.link_served, state.link_dropped, over
+
+
+def single_flow_stepper(topo: TopologyParams, sched: EventSchedule):
+    """(state0, stepper) for `run_message_on` over a one-flow shared
+    topology: ``stepper(state, arrivals[1, n], u[links])`` is one
+    `shared_fabric_tick` (the port's single-flow engine keeps the flow axis
+    of 1, so feedback stays ``[1, n]``; pass ``mole_size=topo.links``)."""
+    if topo.flows != 1:
+        raise ValueError(f"single-flow stepper needs F=1, got F={topo.flows}")
+
+    def stepper(state, arrivals, u):
+        return shared_fabric_tick(topo, sched, state, arrivals, u)
+
+    return init_shared_fabric(topo), stepper

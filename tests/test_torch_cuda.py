@@ -433,3 +433,121 @@ def test_flash_attention_strided_head_dim(cuda, dtype):
     tol = 2e-5 if dtype == torch.float32 else 2e-2
     torch.testing.assert_close(got.float(), flash_attention_plain(q, k, v).float(),
                                atol=tol, rtol=tol)
+
+
+def _fold_values(rng, n, dev):
+    """float32 values of mixed signs and magnitudes (2**-30 to 2**20),
+    with some signed zeros, so any change in the order of additions shows."""
+    mag = np.exp2(rng.uniform(-30, 20, n))
+    vals = (np.where(rng.random(n) < 0.5, -mag, mag) * (rng.random(n) > 0.05)).astype(np.float32)
+    vals[rng.random(n) < 0.02] = -0.0
+    return torch.as_tensor(vals, device=dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["deep-8192", "empty-links", "fat-tree-bypass"])
+def test_link_fold_kernel_matches_plain(cuda, case):
+    """Bit-equal to the plain depth loop: one link of 8,192 entries beside
+    shallow ones; links with no entries and -0 bases; a fat-tree whose
+    intra-pod flows put 2 x 256 x 4 entries on the bypass.  One launch a
+    call, and three graph replays give the eager bits."""
+    from repro_torch.kernels.link_fold import link_fold, link_fold_plain, link_segments
+    from repro_torch.net.topology import FatTreeGrid, fat_tree
+
+    rng = np.random.default_rng(21)
+    if case == "deep-8192":
+        links = 97
+        route = rng.integers(1, links, (2, 4096, 4))
+        route[:, :, :1] = 0  # 2 x 4,096 entries on link 0
+        route = torch.as_tensor(route.astype(np.int32))
+    elif case == "empty-links":
+        links = 300
+        route = torch.as_tensor(rng.integers(0, 40, (3, 50, 4)).astype(np.int32) * 7)
+    else:
+        pairs = [(2 * (f % 8), 2 * (f % 8) + 1) for f in range(256)]
+        route = fat_tree(4, 4, 2, 2, pairs).route
+        links = FatTreeGrid(4, 4, 2, 2).links
+    seg = link_segments(route.to(cuda), links)
+    vals = _fold_values(rng, seg.entries, cuda).reshape(route.shape)
+    base = _fold_values(rng, links, cuda)
+    base[:5] = -0.0
+    before = link_fold.launches
+    got = link_fold(vals, seg, base)
+    want = link_fold_plain(vals, seg, base)
+    torch.cuda.synchronize()
+    assert link_fold.launches == before + 1
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    if case == "deep-8192":
+        assert seg.depth == 8192
+    if case == "fat-tree-bypass":
+        assert seg.depth == 2 * 256 * 4
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = link_fold(vals, seg, base)
+    for _ in range(3):
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out.view(torch.int32), want.view(torch.int32))
+
+
+@pytest.mark.cuda
+def test_fat_tree_sweep_on_the_card_equals_the_cpu(cuda):
+    """A small fat-tree family with intra- and inter-pod flows through
+    `sweep_flows_scenarios` with telemetry: every field and frame leaf of
+    the card's run equals the CPU's, and the card's run launched
+    `link_fold` on every tick."""
+    import dataclasses
+
+    from repro_torch import random as prng
+    from repro_torch.kernels.link_fold import link_fold
+    from repro_torch.net import scenarios, sender, telemetry, topology
+
+    scens = list(scenarios.fat_tree_scenarios(flows=16, n_pods=4, horizon=128).values())
+    mixed = [(2 * (f % 4), 2 * (f % 4) + 1) if f % 2 else (f % 8, (f + 3) % 8)
+             for f in range(16)]
+    topo = topology.fat_tree(4, 2, 2, 2, mixed)
+    scens.append((topo, topology.null_schedule(topo.links)))
+    topos, scheds = scenarios.stack_scenarios(scens)
+    pols = (sender.Policy.ECMP, sender.Policy.WAM, sender.Policy.CC_COUPLED)
+    spec = sender.spec_for_policies(sender.SenderSpec(
+        rate_cap=16, early_exit=True, telemetry=telemetry.TelemetrySpec(stride=4, window=32)),
+        pols)
+    sp = sender.policy_sweep_params(pols, rate=16)
+    keys = prng.split(prng.PRNGKey(5), 2)
+    before = link_fold.launches
+    card = sender.sweep_flows_scenarios(topos, scheds, spec, sp, 32, keys, 128, device=cuda)
+    assert link_fold.launches - before >= int(card[0].ticks_run.sum()) * 2
+    cpu = sender.sweep_flows_scenarios(topos, scheds, spec, sp, 32, keys, 128, device="cpu")
+    for got, want in zip(card, cpu):
+        for f in dataclasses.fields(want):
+            assert torch.equal(getattr(got, f.name).cpu(), getattr(want, f.name)), f.name
+
+
+@pytest.mark.cuda
+def test_telemetry_record_makes_no_host_wait(cuda):
+    """A stride tick's telemetry (the link reader and `record`, whose tick
+    index is a host integer) runs under torch's sync debug mode "error"
+    without a host wait."""
+    from repro_torch.net import sender, telemetry, topology
+
+    pairs = [(f % 8, (f + 3) % 8) for f in range(64)]
+    topo = sender.to_device(topology.fat_tree(4, 2, 2, 2, pairs), cuda)
+    spec = telemetry.TelemetrySpec(stride=4, window=8)
+    frame = telemetry.init_frame(spec, (64,), topo.n, topo.links, device=cuda)
+    state = topology.init_shared_fabric(topo)
+    z = torch.zeros(64, device=cuda)
+    fpp = torch.zeros(64, topo.n, device=cuda)
+    topology.link_telemetry(topo, state)  # builds the cached CSR once, as a run's first tick does
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        frame = telemetry.record(
+            spec, frame, (state.queue == 0).all(), tick=12, m=1 << 10,
+            alloc=torch.ones(64, topo.n, dtype=torch.int32, device=cuda), sent_pp=fpp,
+            dropped_pp=fpp, debt=z, emitted=z, received=z,
+            j=torch.zeros(64, dtype=torch.int64, device=cuda),
+            link=topology.link_telemetry(topo, state))
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert int(frame.count) == 1
+    assert frame.tick.cpu().tolist() == [12] + [0] * 7

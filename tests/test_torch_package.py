@@ -135,11 +135,13 @@ def test_entry_points_default_to_the_card():
     from repro_torch.configs.registry import get_smoke_config
     from repro_torch.launch import serve
     from repro_torch.models import model
-    from repro_torch.net import fountain, sender, topology, transport
+    from repro_torch.net import fountain, scenarios, sender, topology, transport
     from repro_torch.serve_router import Router
     smoke = _load("chip_smoke", ROOT / "chip_smoke.py")
     cfg = transport.TransportConfig(policy=transport.Policy.WAM, rate=4)
     key = prng.PRNGKey(0)
+    keys = key.reshape(1, 2)
+    sweep = sender.policy_sweep_params((transport.Policy.WAM,), rate=4)
     topo = topology.leaf_spine(2, 2, [(0, 1)])
     sched = topology.null_schedule(topo.links)
     calls = [
@@ -149,6 +151,11 @@ def test_entry_points_default_to_the_card():
                                    8, key, 16),
         lambda: sender.run_flows(topo, sched, cfg.spec(), cfg.params(), 8, key, 16),
         lambda: sender.run_flows_sized(topo, sched, cfg.spec(), cfg.params(), 8, key, 16),
+        lambda: sender.sweep_message(smoke.golden_fabric(4, "cpu"), cfg.spec(), sweep, 8,
+                                     keys, 16),
+        lambda: sender.sweep_flows(topo, sched, cfg.spec(), sweep, 8, keys, 16),
+        lambda: sender.sweep_flows_scenarios(*scenarios.stack_scenarios([(topo, sched)]),
+                                             cfg.spec(), sweep, 8, keys, 16),
         lambda: fountain.encode(np.zeros((4, 4), np.uint32), np.zeros((2, 1), np.int32),
                                 np.ones((2, 1), bool)),
         lambda: fountain.decode_overhead_curve(16, 1, np.random.default_rng(0)),
@@ -162,14 +169,20 @@ def test_entry_points_default_to_the_card():
 
 
 def test_telemetry_not_ported_raises():
+    """Telemetry is ported: a `TelemetrySpec` gives (SimResult, frame),
+    and anything else in its place raises instead of being ignored."""
     from repro_torch import random as prng
-    from repro_torch.net import sender, topology
+    from repro_torch.net import sender, telemetry, topology
     topo = topology.leaf_spine(2, 2, [(0, 1)])
+    sched = topology.null_schedule(topo.links)
+    sp = sender.sender_params(4, rate=4)
     spec = sender.SenderSpec(rate_cap=4, telemetry=object())
-    with pytest.raises(NotImplementedError):
-        sender.run_flows(topo, topology.null_schedule(topo.links), spec,
-                         sender.sender_params(4, rate=4), 8, prng.PRNGKey(0), 16,
-                         device="cpu")
+    with pytest.raises(TypeError):
+        sender.run_flows(topo, sched, spec, sp, 8, prng.PRNGKey(0), 16, device="cpu")
+    spec = sender.SenderSpec(rate_cap=4, telemetry=telemetry.TelemetrySpec(stride=2, window=4))
+    result, frame = sender.run_flows(topo, sched, spec, sp, 8, prng.PRNGKey(0), 16,
+                                     device="cpu")
+    assert isinstance(result, sender.SimResult) and isinstance(frame, telemetry.TelemetryFrame)
 
 
 def test_convert_carries_reference_parameters():
