@@ -39,26 +39,56 @@ Phases (the first that fails ends the run with a nonzero exit):
 5. The fat-tree family (benchmarks/bench_scaleout.py's full pass,
    unsharded): `sweep_flows_scenarios` over the four `fat_tree_scenarios`
    of 4,096 flows on 8 pods x 4 leaves x 2 spines x 2 cores (link capacity
-   32, host rate 64, 4 packets a flow, horizon 2,048, early exit), ECMP and
-   WAM, one draw, with telemetry (stride 16, window 128): every flow must
-   finish; the ticks, ms a tick, cct percentiles and kernel launches of
-   each run, the peak memory and the cct digest are printed.  WAM on
-   `inter_pod_incast` without telemetry, and WAM on `core_link_flap` with
-   the plain spray, must equal their slices.  Then the card against the
+   32, host rate 64, 4 packets a flow, early exit), ECMP and WAM, one
+   draw, with telemetry (stride 16, window 128), horizon 1,024 (cut from
+   the bench's 2,048: every flow finishes by tick 288, so the cct digest
+   is the same; the two ECMP runs that never settle run 1,024 ticks
+   fewer): every flow must finish; the ticks, ms a tick, cct percentiles
+   and kernel launches of each run, the peak memory and the cct digest
+   are printed.  WAM on `inter_pod_incast` without telemetry, and WAM on
+   `core_link_flap` with the plain spray, must equal their slices.  Then
+   the card against the
    CPU: `pair_scenarios(flows=4, horizon=256)` and a 64-flow fat-tree
    family (4 pods x 2 x 2 x 2, with one placement of intra- and inter-pod
    flows) through `sweep_flows_scenarios` with telemetry over ECMP, WAM and
    CC_COUPLED and two draws: every result field and frame leaf bit-equal.
-6. The coded path: one 32 MiB message (K = 8,192 source symbols of 4 KiB)
+6. The job and cluster layers: (a) `compile_job` for all 10 archs
+   (workers 4, tp 8, iterations 2, rate 32, max_shard 512), each one's
+   compute:comm ratio, shards and steps printed; (b) the job cell,
+   benchmarks/bench_job_ettr.py's full pass for qwen3-8b: the six
+   `job_scenarios(workers=4, horizon=2048)` stacked, ECMP and WAM at rate
+   32, one draw, early exit in chunks of 16, through
+   `sweep_job_steps_scenarios`: every step must finish and the cct digest
+   equal the JAX package's (pinned, `JOB_DIGEST`); each (scenario,
+   policy)'s ETTR, exposed ticks, ticks run, ms a tick and kernel
+   launches, and the WAM - ECMP margin, are printed; (d) WAM on link_flap
+   with the plain spray must equal its slice of (b) in every field of
+   every step, and one job step runs under torch's sync debug mode
+   "error"; (c) the cluster cell, benchmarks/bench_cluster.py's full pass
+   for its rings_overlapped scenario (xlstm-350m and qwen3-8b, max_shard
+   256, horizon 1,024; flap_during_overlap is cut to keep the script
+   within eight minutes), ECMP and WAM,
+   one draw, through `sweep_cluster`: every round must finish, the raw
+   cct digest equal the reference's (`CLUSTER_DIGEST`), and per-job ETTR,
+   solo ETTR, slowdown, Jain fairness, the hottest link's utilisation,
+   ticks and ms a tick are printed; (e) the card against the CPU at the
+   CPU tests' sizes: `sweep_job` over link_flap, crossjob_background and
+   the correlated spine outage x ECMP, WAM, RAND_ADAPTIVE, CC_COUPLED x
+   two draws, `run_job` with telemetry, `sweep_cluster_rounds_scenarios`
+   over the overlapped and staggered placements padded to one round count
+   and over the correlated burst flaps (its grid has another link count,
+   so it is a call of its own), and `sweep_ring_cct_shared` on a ring of
+   4: every result field and frame leaf bit-equal.
+7. The coded path: one 32 MiB message (K = 8,192 source symbols of 4 KiB)
    encoded into R = 13,139 symbols on the card; decoding all of them and a
    seeded 90% subset, a K = 256 round trip and two `decode_overhead_curve`
    runs must equal the same calls on the CPU.  (The `lt_encode` kernel is
    held to its plain version in phase 2, at this shape among others.)
-7. The serving router: 64 replicas of unequal weight, 200 windows of
+8. The serving router: 64 replicas of unequal weight, 200 windows of
    4,096 requests with one replica 8x slower in windows 50-119; every
    replica id, sequence number, severity weight and share must equal the
    router's CPU run.
-8. Dense serving (the model zoo's path): (a) `smoke()` of qwen3-8b and of
+9. Dense serving (the model zoo's path): (a) `smoke()` of qwen3-8b and of
    h2o-danube-3-4b on the card, held to the same run on the CPU (which
    the CPU tests hold to the JAX model); (b) full width: qwen3-8b, all 36
    layers, f32 weights from a seeded generator on the card, 4 prompts of
@@ -79,9 +109,9 @@ Phases (the first that fails ends the run with a nonzero exit):
    once, and three CUDA-graph replays of one call) and times them beside
    the plain versions and `scaled_dot_product_attention`.
 
-Each path of phases 4-8 runs with the kernels' launch counts set to 0
+Each path of phases 4-9 runs with the kernels' launch counts set to 0
 just before it and read just after; a kernel row's ``launches`` is its
-total over those paths (the comparisons of phase 5 not counted).  The
+total over those paths (the comparisons of phases 5 and 6 not counted).  The
 last lines are the card's name and power limit, one JSON object with a
 row per kernel, and ``{"ok": true, "device": {...}}``.  Without a CUDA
 device the script exits nonzero and prints no result.
@@ -107,7 +137,7 @@ import torch  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 
 from repro_torch import random as prng  # noqa: E402
-from repro_torch.configs.registry import get_config, get_smoke_config  # noqa: E402
+from repro_torch.configs.registry import ARCH_IDS, get_config, get_smoke_config  # noqa: E402
 from repro_torch.core.profile import make_profile, quantize_profile  # noqa: E402
 from repro_torch.core.spray import (  # noqa: E402
     SprayMethod,
@@ -143,14 +173,19 @@ from repro_torch.kernels.spray_select import (  # noqa: E402
     spray_select_rows,
     spray_select_rows_plain,
 )
-from repro_torch.net import fountain  # noqa: E402
+from repro_torch.net import cluster, collectives, fountain, jobs  # noqa: E402
 from repro_torch.net.fabric import FabricParams  # noqa: E402
 from repro_torch.net.policies import Policy, assign_lanes  # noqa: E402
 from repro_torch.net.policy_state import PolicyState  # noqa: E402
 from repro_torch.net import sender  # noqa: E402
 from repro_torch.net.scenarios import (  # noqa: E402
+    cluster_scenarios,
+    correlated_cluster_scenarios,
+    correlated_job_scenarios,
     fat_tree_scenarios,
+    job_scenarios,
     pair_scenarios,
+    stack_pytrees,
     stack_scenarios,
 )
 from repro_torch.net.telemetry import (  # noqa: E402
@@ -206,7 +241,10 @@ GOLDEN_CASES = (
 WIDE_LEAVES, WIDE_SPINES, WIDE_FLOWS = 64, 16, 4096
 WIDE_RATE, WIDE_PACKETS, WIDE_HORIZON = 32, 256, 2048
 # the fat-tree family: bench_scaleout.py's full pass (:79-91), unsharded
-FAT_FLOWS, FAT_PACKETS, FAT_HORIZON, FAT_RATE = 4096, 4, 2048, 32
+# Cut: horizon 1,024 in place of the bench's 2,048.  Every flow finishes by
+# tick 288, so the cct and its digest are unchanged; only the two ECMP runs
+# that never settle early (incast, oversubscription) run fewer ticks.
+FAT_FLOWS, FAT_PACKETS, FAT_HORIZON, FAT_RATE = 4096, 4, 1024, 32
 FAT_GRID = dict(n_pods=8, leaves_per_pod=4, spines_per_pod=2, cores_per_spine=2)
 FAT_CAPACITY, FAT_HOST_RATE = 32.0, 64.0
 FAT_TELEMETRY = dict(stride=16, window=128)
@@ -214,6 +252,53 @@ FAT_POLICIES = ("ECMP", "WAM")
 # the card-against-CPU sweeps: the CPU tests' families
 SMALL_POLICIES, SMALL_HORIZON, SMALL_PACKETS = ("ECMP", "WAM", "CC_COUPLED"), 256, 32
 SMALL_TELEMETRY = dict(stride=4, window=64)
+# the job cell: benchmarks/bench_job_ettr.py's full pass (:58-98) for one
+# model, ECMP and WAM, one draw
+JOB_ARCH, JOB_WORKERS, JOB_TP, JOB_ITERATIONS = "qwen3-8b", 4, 8, 2
+JOB_RATE, JOB_MAX_SHARD, JOB_HORIZON, JOB_EXIT_CHUNK = 32, 512, 2048, 16
+JOB_POLICIES = ("ECMP", "WAM")
+# the cluster cell: benchmarks/bench_cluster.py's full pass (:71-100), one
+# of its scenarios (cut: flap_during_overlap, to keep the script within
+# eight minutes), ECMP and WAM, one draw
+CLUSTER_ARCHS, CLUSTER_MAX_SHARD, CLUSTER_HORIZON = ("xlstm-350m", "qwen3-8b"), 256, 1024
+CLUSTER_SCENARIOS = ("rings_overlapped",)
+# The JAX package's cct digests at these settings (`_digest` of cct[6, 2,
+# 1, 1, 18] of the job cell and of the cluster scenarios' raw cct stacked,
+# [1, 2, 1, 3, 18, 8]), computed on the CPU with jax 0.9.0:
+#
+#   PYTHONPATH=src JAX_PLATFORMS=cpu python - <<'EOF'
+#   import hashlib, jax, numpy as np
+#   from repro.net import cluster as CL, jobs as J, scenarios as S, sender as SD
+#   from repro.net.transport import Policy
+#   d = lambda c: hashlib.sha256(np.asarray(c, np.float32).tobytes()).hexdigest()[:16]
+#   with jax.threefry_partitionable(False):
+#       spec = SD.SenderSpec(rate_cap=32, early_exit=True, exit_chunk=16)
+#       sp = SD.policy_sweep_params((Policy.ECMP, Policy.WAM), rate=32)
+#       keys = jax.random.split(jax.random.PRNGKey(0), 2)[:1]
+#       job = J.compile_job("qwen3-8b", workers=4, tp=8, iterations=2, rate=32,
+#                           max_shard=512)
+#       sc = S.job_scenarios(workers=4, horizon=2048)
+#       ins = [J.job_step_inputs([job], s, 2048) for _, s in sc.values()]
+#       print(d(J.sweep_job_steps_scenarios(
+#           S.stack_pytrees([t for t, _ in sc.values()]),
+#           S.stack_pytrees([s for s, _ in ins]), spec, sp, ins[0][1], keys, 2048)[0]))
+#       js = [J.compile_job(a, workers=4, tp=8, iterations=2, rate=32, max_shard=256)
+#             for a in ("xlstm-350m", "qwen3-8b")]
+#       cs = S.cluster_scenarios(js, horizon=2048)
+#       raw = []
+#       for n in ("rings_overlapped",):
+#           c, t, s = cs[n]
+#           scheds, sizes = CL.cluster_inputs(c, s, 1024)
+#           raw.append(CL.sweep_cluster_rounds(t, scheds, spec, sp, sizes, keys,
+#                                              1024)["cct"])
+#       print(d(np.stack(raw)))
+#   EOF
+#
+# `tests/test_torch_smoke_pins.py` recomputes both on the CPU.
+JOB_DIGEST, CLUSTER_DIGEST = "96419a91aea6b0c4", "cc1ada697e2a514d"
+# the card-against-CPU job and cluster runs: the CPU tests' sizes
+SMALL_JOB_POLICIES, SMALL_JOB_HORIZON = ("ECMP", "WAM", "RAND_ADAPTIVE", "CC_COUPLED"), 384
+SMALL_JOB_TELEMETRY = dict(stride=4, window=32)
 # a dependent float32 add waits this many cycles of the SM clock on Hopper's
 # CUDA cores (the latency of FADD; the card's clock is read with nvidia-smi)
 FADD_CYCLES = 4
@@ -934,6 +1019,296 @@ def phase_fat_tree(dev, rows):
               f"{time.perf_counter() - t0:.1f} s on the CPU)")
 
 
+class _RunLog:
+    """``on_run`` callback of the job and cluster sweeps: the
+    card's time, ticks and kernel launches of every run, keyed by its sweep
+    index (the card is synchronised after each run; the early-exit check
+    waits for it every chunk already)."""
+
+    def __init__(self):
+        self.runs = {}
+        self.last = None
+
+    def start(self):
+        torch.cuda.synchronize()
+        spray_select.launches = link_fold.launches = 0
+        self.last = (time.perf_counter(), 0, 0)
+
+    def __call__(self, idx, out):
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        r = out[0] if isinstance(out, tuple) else out
+        self.runs[idx] = dict(s=now - self.last[0], ticks=int(r.ticks_run),
+                              folds=link_fold.launches - self.last[1],
+                              sprays=spray_select.launches - self.last[2], result=out)
+        self.last = (now, link_fold.launches, spray_select.launches)
+
+    def total(self, key, pick):
+        """Sum of `key` over the runs whose index satisfies `pick`."""
+        return sum(v[key] for k, v in self.runs.items() if pick(k))
+
+
+def _check_kernels(log: _RunLog, policy_of, what):
+    """Every run folded its links twice a tick; only WAM runs sprayed."""
+    for idx, v in log.runs.items():
+        wam = policy_of(idx) == "WAM"
+        if v["folds"] < 2 * v["ticks"] or wam != (v["sprays"] > 0) and v["ticks"] > 0:
+            raise AssertionError(f"{what} {idx}: the run did not go through its kernels "
+                                 f"({v['ticks']} ticks, {v['folds']} link_fold, "
+                                 f"{v['sprays']} spray_select launches)")
+
+
+def job_step_waits(job, topo, sched, dev) -> None:
+    """One job step on the card under torch's sync debug mode "error": the
+    step (WAM, without early exit, whose chunk check is the one wait a run
+    makes) raises if it copies to or from the host.  The step runs once
+    before, as a run's first step builds the link CSR and loads the
+    kernels."""
+    spec = sender.SenderSpec(rate_cap=JOB_RATE)
+    wam = sender.sender_params(Policy.WAM, rate=JOB_RATE)
+    topo = sender.to_device(topo, dev)
+    shard, _, offsets = jobs.step_table(job)
+    scheds = jobs.scheduled_events(sched, offsets[:1], 64, device=dev)
+    shard = torch.as_tensor(shard[:1], device=dev)
+    key = prng.PRNGKey(0, device=dev)
+    jobs.run_job_steps(topo, scheds, spec, wam, shard, key, 64, device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        cct, fin = jobs.run_job_steps(topo, scheds, spec, wam, shard, key, 64, device=dev)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    if cct.shape != (1,) or not bool(torch.isfinite(cct).all()):
+        raise AssertionError("jobs: the sync-checked step gave no barrier")
+
+
+def _job_card_vs_cpu(dev):
+    """The CPU tests' job sizes on the card and on the CPU: `sweep_job`
+    over two job scenarios and the correlated spine outage, four policies
+    (two stateful), two draws; then `run_job` with telemetry on one draw."""
+    job = jobs.compile_job("qwen3-8b", workers=4, tp=8, iterations=1, rate=JOB_RATE,
+                           max_shard=48)
+    lib = dict(job_scenarios(workers=4, horizon=256))
+    lib["srlg_spine_down"] = correlated_job_scenarios(workers=4, horizon=256)[
+        "srlg_spine_down"]
+    pols = [Policy[p] for p in SMALL_JOB_POLICIES]
+    spec = sender.spec_for_policies(sender.SenderSpec(rate_cap=JOB_RATE, early_exit=True,
+                                                      exit_chunk=JOB_EXIT_CHUNK), pols)
+    sp = sender.policy_sweep_params(pols, rate=JOB_RATE)
+    keys = prng.split(prng.PRNGKey(11), 2)
+    t_card = t_cpu = 0.0
+    for name in ("link_flap", "crossjob_background", "srlg_spine_down"):
+        topo, sched = lib[name]
+        out = {}
+        for where in (dev, "cpu"):
+            t0 = time.perf_counter()
+            out[where] = jobs.sweep_job(topo, sched, spec, sp, [job], keys, SMALL_JOB_HORIZON,
+                                        device=where)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            t_card, t_cpu = (t_card + dt, t_cpu) if where is dev else (t_card, t_cpu + dt)
+        for k in ("cct", "finished", "ettr", "exposed"):
+            a, b = out[dev][k], out["cpu"][k]
+            if a.dtype != b.dtype or a.shape != b.shape or not np.array_equal(a, b):
+                raise AssertionError(f"jobs: sweep_job on {name}: {k} differs on the card")
+    topo, sched = lib["link_flap"]
+    tspec = dataclasses.replace(spec, telemetry=TelemetrySpec(**SMALL_JOB_TELEMETRY))
+    wam = sender.sender_params(Policy.WAM, rate=JOB_RATE)
+    runs = [jobs.run_job(topo, sched, tspec, wam, job, keys[0], SMALL_JOB_HORIZON, device=w)
+            for w in (dev, "cpu")]
+    for k in ("step_cct", "ettr", "exposed_comm_ticks", "finished"):
+        if not np.array_equal(getattr(runs[0][0], k), getattr(runs[1][0], k)):
+            raise AssertionError(f"jobs: run_job with telemetry: {k} differs on the card")
+    _equal_runs(runs[0][1], runs[1][1], "jobs: run_job's frame, the card against the CPU")
+    print(f"[jobs] sweep_job (link_flap, crossjob_background, srlg_spine_down x "
+          f"{len(pols)} policies x 2 draws, {job.total_steps} steps) and run_job with "
+          f"telemetry: every field and frame leaf equal to the CPU run ({t_card:.1f} s on "
+          f"the card, {t_cpu:.1f} s on the CPU for the sweeps)")
+
+
+def _cluster_card_vs_cpu(dev):
+    """The CPU tests' cluster sizes on the card and on the CPU through
+    `sweep_cluster_rounds_scenarios`: the overlapped and the staggered
+    placements padded to one round count (the padded rounds all silent),
+    and the correlated burst flaps (a grid of its own link count); then
+    `sweep_ring_cct_shared` on a ring of 4."""
+    js = [jobs.compile_job(a, workers=4, tp=8, iterations=1, rate=JOB_RATE, max_shard=48,
+                           overlap={"allreduce": 0.0, "allgather": 0.0})
+          for a in CLUSTER_ARCHS]
+    pols = [Policy.ECMP, Policy.WAM]
+    spec = sender.SenderSpec(rate_cap=JOB_RATE, early_exit=True, exit_chunk=JOB_EXIT_CHUNK)
+    sp = sender.policy_sweep_params(pols, rate=JOB_RATE)
+    keys = prng.split(prng.PRNGKey(4), 1)
+    lib = cluster_scenarios(js, horizon=512)
+    corr = correlated_cluster_scenarios(js, horizon=512)
+    families = {"overlapped + staggered": [lib["rings_overlapped"], lib["staggered_start"]],
+                "correlated burst_flaps": [corr["burst_flaps"]]}
+    for name, scens in families.items():
+        R = max(c.rounds for c, _, _ in scens)
+        inputs = [cluster.cluster_inputs(c, s, SMALL_JOB_HORIZON, R) for c, _, s in scens]
+        args = (stack_pytrees([t for _, t, _ in scens]), stack_pytrees([s for s, _ in inputs]),
+                spec, sp, torch.stack([z for _, z in inputs]), keys, SMALL_JOB_HORIZON)
+        t0 = time.perf_counter()
+        card = cluster.sweep_cluster_rounds_scenarios(*args, device=dev)
+        torch.cuda.synchronize()
+        t_card = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        cpu = cluster.sweep_cluster_rounds_scenarios(*args, device="cpu")
+        t_cpu = time.perf_counter() - t0
+        for k in ("cct", "finished", "link_served", "link_busy"):
+            a, b = card[k].cpu(), cpu[k]
+            if a.dtype != b.dtype or a.shape != b.shape or not torch.equal(a, b):
+                raise AssertionError(f"cluster {name}: {k} differs on the card")
+        print(f"[jobs] cluster {name} ({len(scens)} scenario(s) x 2 policies x {R} rounds x 3 "
+              f"variants): every raw field equal to the CPU run ({t_card:.1f} s on the card, "
+              f"{t_cpu:.1f} s on the CPU)")
+    ring = collectives.ring_topology(4, uplink_capacity=4.0, degrade_p=0.01)
+    ring_sched = null_schedule(ring.links)
+    pols = [Policy.ECMP, Policy.WAM, Policy.CC_COUPLED]
+    rspec = sender.spec_for_policies(sender.SenderSpec(rate_cap=16, early_exit=True,
+                                                       exit_chunk=16), pols)
+    rsp = sender.policy_sweep_params(pols, rate=16)
+    rkeys = prng.split(prng.PRNGKey(8), 6)
+    card = collectives.sweep_ring_cct_shared(ring, ring_sched, rspec, rsp, 48, rkeys, 256,
+                                             device=dev)
+    cpu = collectives.sweep_ring_cct_shared(ring, ring_sched, rspec, rsp, 48, rkeys, 256,
+                                            device="cpu")
+    for a, b, k in zip(card, cpu, ("per_step", "finished")):
+        if not torch.equal(a.cpu(), b):
+            raise AssertionError(f"collectives: sweep_ring_cct_shared {k} differs on the card")
+    print(f"[jobs] sweep_ring_cct_shared (ring of 4, 3 policies x 6 steps): equal to the CPU "
+          f"run, per-step barriers {card[0].cpu().tolist()}")
+
+
+def phase_jobs(dev, rows):
+    # (a) the host: every arch's schedule through the cost model
+    for arch in ARCH_IDS:
+        job = jobs.compile_job(arch, workers=JOB_WORKERS, tp=JOB_TP, iterations=JOB_ITERATIONS,
+                               rate=JOB_RATE, max_shard=JOB_MAX_SHARD)
+        print(f"[jobs] {arch}: compute:comm {job.compute_comm_ratio:.4f}, shards "
+              f"{[p.shard_packets for p in job.phases]}, {job.total_steps} steps, compute "
+              f"{job.compute_ticks:.1f} ticks")
+
+    # (b) the job cell at full width
+    job = jobs.compile_job(JOB_ARCH, workers=JOB_WORKERS, tp=JOB_TP, iterations=JOB_ITERATIONS,
+                           rate=JOB_RATE, max_shard=JOB_MAX_SHARD)
+    lib = job_scenarios(workers=JOB_WORKERS, horizon=JOB_HORIZON)
+    names = list(lib)
+    inputs = [jobs.job_step_inputs([job], s, JOB_HORIZON, device=dev) for _, s in lib.values()]
+    topos = stack_pytrees([sender.to_device(t, dev) for t, _ in lib.values()])
+    scheds = stack_pytrees([s for s, _ in inputs])
+    spec = sender.SenderSpec(rate_cap=JOB_RATE, early_exit=True, exit_chunk=JOB_EXIT_CHUNK)
+    sp = sender.policy_sweep_params([Policy[p] for p in JOB_POLICIES], rate=JOB_RATE)
+    keys = prng.split(prng.PRNGKey(0), 2)[:1]
+    log = _RunLog()
+    log.start()
+    t0 = time.perf_counter()
+    cct, fin = jobs.sweep_job_steps_scenarios(topos, scheds, spec, sp, inputs[0][1], keys,
+                                              JOB_HORIZON, device=dev, on_run=log)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    folds, sprays = link_fold.launches, spray_select.launches
+    want = (len(names), len(JOB_POLICIES), 1, 1, job.total_steps)
+    if tuple(cct.shape) != want:
+        raise AssertionError(f"jobs: cct {tuple(cct.shape)}, expected {want}")
+    if not bool(fin.all()):
+        raise AssertionError(f"jobs: {int((~fin).sum())} steps did not finish")
+    _check_kernels(log, lambda idx: JOB_POLICIES[idx[1]], "jobs")
+    rows["link_fold"]["launches"] += folds
+    rows["spray_select"]["launches"] += sprays
+    cct_np = cct.cpu().numpy()
+    for c, name in enumerate(names):
+        ettrs = []
+        for p, pol in enumerate(JOB_POLICIES):
+            ettr, exposed = jobs.job_ettr(job, cct_np[c, p, 0, 0])
+            ettrs.append(float(ettr))
+            pick = (lambda k, c=c, p=p: k[:2] == (c, p))
+            ticks, run_s = log.total("ticks", pick), log.total("s", pick)
+            print(f"[jobs] {name} / {pol}: ETTR {float(ettr):.6f}, exposed {float(exposed):.1f} "
+                  f"ticks, {ticks} ticks run in {run_s:.3f} s ({1e3 * run_s / max(ticks, 1):.4f} "
+                  f"ms/tick), spray_select launches {log.total('sprays', pick)}, link_fold "
+                  f"launches {log.total('folds', pick)}")
+        print(f"[jobs] {name}: WAM - ECMP ETTR margin {ettrs[1] - ettrs[0]:+.6f}")
+    ticks = log.total("ticks", lambda k: True)
+    digest = _digest(cct)
+    print(f"[jobs] job cell ({JOB_ARCH}, {len(names)} scenarios x {len(JOB_POLICIES)} policies "
+          f"x 1 draw x {job.total_steps} steps, horizon {JOB_HORIZON}): {ticks} ticks in "
+          f"{secs:.3f} s ({1e3 * secs / ticks:.4f} ms/tick); launches link_fold {folds}, "
+          f"spray_select {sprays}; cct digest {digest} (reference {JOB_DIGEST})")
+    if digest != JOB_DIGEST:
+        raise AssertionError(f"jobs: cct digest {digest} != the reference's {JOB_DIGEST}")
+
+    # (d) WAM on link_flap with the plain spray against its slice of (b)
+    c, p = names.index("link_flap"), JOB_POLICIES.index("WAM")
+    plain_log = _RunLog()
+    plain_log.start()
+    topo, sched = lib["link_flap"]
+    got = jobs.run_job_steps(topo, jobs.scheduled_events(sched, jobs.step_table(job)[2],
+                                                         JOB_HORIZON, device=dev),
+                             spec, sender.sender_params(Policy.WAM, rate=JOB_RATE),
+                             inputs[0][1][0], keys[0], JOB_HORIZON, device=dev,
+                             plain_spray=True, on_run=plain_log)
+    if not (torch.equal(got[0], cct[c, p, 0, 0]) and torch.equal(got[1], fin[c, p, 0, 0])):
+        raise AssertionError("jobs: link_flap / WAM with the plain spray differs from its slice")
+    for (s,), v in plain_log.runs.items():
+        _equal_runs(v["result"], log.runs[(c, p, 0, 0, s)]["result"],
+                    f"jobs: link_flap / WAM step {s} with the plain spray")
+    print("[jobs] link_flap / WAM with the plain spray: every step's every field equal to its "
+          "slice of the sweep")
+    job_step_waits(job, *lib["link_flap"], dev)
+    print("[jobs] one job step on the card: no copy to or from the host (torch sync debug "
+          "mode 'error')")
+
+    # (c) the cluster cell at full width
+    cjobs = [jobs.compile_job(a, workers=JOB_WORKERS, tp=JOB_TP, iterations=JOB_ITERATIONS,
+                              rate=JOB_RATE, max_shard=CLUSTER_MAX_SHARD) for a in CLUSTER_ARCHS]
+    clib = cluster_scenarios(cjobs, horizon=JOB_HORIZON)
+    raws, folds, sprays = [], 0, 0
+    for name in CLUSTER_SCENARIOS:
+        placed, topo, sched = clib[name]
+        log = _RunLog()
+        log.start()
+        t0 = time.perf_counter()
+        res = cluster.sweep_cluster(topo, sched, spec, sp, placed, keys, CLUSTER_HORIZON,
+                                    device=dev, on_run=log)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        folds, sprays = folds + link_fold.launches, sprays + spray_select.launches
+        _check_kernels(log, lambda idx: JOB_POLICIES[idx[0]], f"cluster {name}")
+        if not bool(np.all(res.finished)):
+            raise AssertionError(f"cluster {name}: some round did not finish")
+        R, V = placed.rounds, 1 + len(cjobs)
+        # the raw cct [P, 1, V, R, F], from each run's result (on_run's
+        # index is (policy, draw, round, variant))
+        raw = torch.stack([log.runs[(p, 0, r, v)]["result"].cct
+                           for p in range(len(JOB_POLICIES)) for v in range(V)
+                           for r in range(R)]).reshape(len(JOB_POLICIES), 1, V, R, -1)
+        raws.append(raw)
+        for p, pol in enumerate(JOB_POLICIES):
+            pick = (lambda k, p=p: k[0] == p)
+            ticks, run_s = log.total("ticks", pick), log.total("s", pick)
+            hot = res.link_util[p, 0].max()
+            print(f"[jobs] cluster {name} / {pol}: ETTR {res.ettr[p, 0].round(6).tolist()}, "
+                  f"solo {res.solo_ettr[p, 0].round(6).tolist()}, slowdown "
+                  f"{res.slowdown[p, 0].round(6).tolist()}, Jain {res.jain[p, 0]:.6f}, hottest "
+                  f"link utilisation {hot:.6f}; {ticks} ticks in {run_s:.3f} s "
+                  f"({1e3 * run_s / max(ticks, 1):.4f} ms/tick)")
+        print(f"[jobs] cluster {name}: {R} rounds x {V} variants x {len(JOB_POLICIES)} "
+              f"policies in {secs:.3f} s")
+    rows["link_fold"]["launches"] += folds
+    rows["spray_select"]["launches"] += sprays
+    digest = _digest(torch.stack(raws))
+    print(f"[jobs] cluster cell: launches link_fold {folds}, spray_select {sprays}; cct digest "
+          f"{digest} (reference {CLUSTER_DIGEST})")
+    if digest != CLUSTER_DIGEST:
+        raise AssertionError(f"cluster: cct digest {digest} != the reference's {CLUSTER_DIGEST}")
+
+    # (e) the card against the CPU at the CPU tests' sizes
+    _job_card_vs_cpu(dev)
+    _cluster_card_vs_cpu(dev)
+
+
 def _same_decode(a, b, what):
     if (a is None) != (b is None) or (a is not None and not np.array_equal(a, b)):
         raise AssertionError(f"{what}: the card's decode differs from the CPU's")
@@ -1431,6 +1806,7 @@ def main() -> int:
     phase_goldens(dev)
     phase_wide(dev, rows)
     phase_fat_tree(dev, rows)
+    phase_jobs(dev, rows)
     phase_coded(dev, rows, message)
     phase_router(dev, rows)
     phase_dense(dev, rows)

@@ -1,6 +1,7 @@
-"""Where the time goes in the coded, router, dense and fat-tree cells, on one NVIDIA card.
+"""Where the time goes in the coded, router, dense, fat-tree, job and cluster cells, on one NVIDIA card.
 
-    python3 scripts/profile_cells.py --cell coded|router|prefill|decode|fattree [--steps N]
+    python3 scripts/profile_cells.py \
+        --cell coded|router|prefill|decode|fattree|job|cluster [--steps N]
 
 Runs one cell of `chip_smoke.py` under `torch.profiler` and prints the
 wall time per step, the card's busy and idle shares, the device
@@ -12,8 +13,12 @@ qwen3-8b prefill of 4 x 2,048 tokens (`prefill`, default 3), one
 decode step of those 4 sequences after it (`decode`, default 20), or one
 tick of WAM on the full-width fat-tree family's `inter_pod_uniform`
 scenario with the family's telemetry (`fattree`, default 64: one run of
-that many ticks, early exit off).  The wide cell has its own tool,
-`tools/torch_profile_wide.py`.
+that many ticks, early exit off).  The job and cluster cells report per
+tick, over N runs (default 3) of one ring step as their sweeps run it
+(early exit in chunks of 16): the full-width qwen3-8b job's first step on
+`pfc_storm` under WAM (`job`), and the full-width cluster cell's first
+`rings_overlapped` round, both jobs active, under WAM (`cluster`).  The
+wide cell has its own tool, `tools/torch_profile_wide.py`.
 """
 from __future__ import annotations
 
@@ -33,8 +38,9 @@ from torch.profiler import ProfilerActivity, profile  # noqa: E402
 from repro_torch.train.step import build_decode_step, build_prefill_step  # noqa: E402
 
 UNIT = {"coded": "message", "router": "window", "prefill": "prefill", "decode": "step",
-        "fattree": "tick"}
-STEPS = {"coded": 2, "router": 50, "prefill": 3, "decode": 20, "fattree": 64}
+        "fattree": "tick", "job": "tick", "cluster": "tick"}
+STEPS = {"coded": 2, "router": 50, "prefill": 3, "decode": 20, "fattree": 64, "job": 3,
+         "cluster": 3}
 
 
 def _device_us(evt) -> float:
@@ -73,11 +79,50 @@ def _fat_tree_run(ticks: int, dev):
                                        device=dev)
 
 
+def _ring_step(cell: str, dev):
+    """One ring step of the job cell (`job`) or one round of the cluster
+    cell (`cluster`) under WAM, as the sweeps run it; returns its ticks."""
+    spec = cs.sender.SenderSpec(rate_cap=cs.JOB_RATE, early_exit=True,
+                                exit_chunk=cs.JOB_EXIT_CHUNK)
+    wam = cs.sender.sender_params(cs.Policy.WAM, rate=cs.JOB_RATE)
+    key = cs.prng.split(cs.prng.PRNGKey(0), 2)[0].to(dev)
+    if cell == "job":
+        job = cs.jobs.compile_job(cs.JOB_ARCH, workers=cs.JOB_WORKERS, tp=cs.JOB_TP,
+                                  iterations=cs.JOB_ITERATIONS, rate=cs.JOB_RATE,
+                                  max_shard=cs.JOB_MAX_SHARD)
+        topo, sched = cs.job_scenarios(workers=cs.JOB_WORKERS,
+                                       horizon=cs.JOB_HORIZON)["pfc_storm"]
+        scheds, shard = cs.jobs.job_step_inputs([job], sched, cs.JOB_HORIZON, device=dev)
+        topo = cs.sender.to_device(topo, dev)
+        sched0 = cs.sender.EventSchedule(cap_scale=scheds.cap_scale[0, 0],
+                                         bg_arrivals=scheds.bg_arrivals[0, 0])
+        size, horizon = shard[0, 0], cs.JOB_HORIZON
+        key = cs.prng.fold_in(key, 0)
+    else:
+        js = [cs.jobs.compile_job(a, workers=cs.JOB_WORKERS, tp=cs.JOB_TP,
+                                  iterations=cs.JOB_ITERATIONS, rate=cs.JOB_RATE,
+                                  max_shard=cs.CLUSTER_MAX_SHARD) for a in cs.CLUSTER_ARCHS]
+        placed, topo, sched = cs.cluster_scenarios(js, horizon=cs.JOB_HORIZON)["rings_overlapped"]
+        scheds, sizes = cs.cluster.cluster_inputs(placed, sched, cs.CLUSTER_HORIZON, device=dev)
+        topo = cs.sender.to_device(topo, dev)
+        sched0 = cs.sender.EventSchedule(cap_scale=scheds.cap_scale[0],
+                                         bg_arrivals=scheds.bg_arrivals[0])
+        size, horizon = sizes[0, 0], cs.CLUSTER_HORIZON
+        key = cs.prng.fold_in(key, 0)
+
+    def step():
+        r = cs.sender.run_flows_sized(topo, sched0, spec, wam, size, key, horizon, device=dev)
+        return int(r.ticks_run)
+    return step
+
+
 def _step(cell: str, dev, steps: int):
     """One step of the cell, built once (for `fattree`, one run of `steps`
     ticks)."""
     if cell == "fattree":
         return _fat_tree_run(steps, dev)
+    if cell in ("job", "cluster"):
+        return _ring_step(cell, dev)
     if cell in ("prefill", "decode"):
         return _dense_step(cell, dev)
     if cell == "coded":
@@ -98,7 +143,7 @@ def main() -> int:
     ap.add_argument("--cell", choices=tuple(UNIT), required=True)
     ap.add_argument("--steps", type=int, default=None,
                     help="steps to profile (default: coded 2, router 50, prefill 3, fattree 64, "
-                    "decode 20)")
+                    "decode 20, job 3, cluster 3)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("profile_cells: no CUDA device", file=sys.stderr)
@@ -113,10 +158,12 @@ def main() -> int:
     calls = 1 if args.cell == "fattree" else steps  # a fattree call runs every tick
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for _ in range(calls):
-            step()
+        ticks = [step() for _ in range(calls)]
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
+    if args.cell in ("job", "cluster"):  # per tick, over every run's ticks
+        print(f"cell {args.cell}: {calls} runs of {ticks[0]} ticks")
+        steps = sum(ticks)
     ops = [e for e in prof.key_averages()
            if str(getattr(e, "device_type", "")).endswith("CUDA") and _device_us(e) > 0]
     busy_us = sum(_device_us(e) for e in ops)

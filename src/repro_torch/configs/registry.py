@@ -1,7 +1,10 @@
 """Architecture registry: ``--arch <id>`` resolution and smoke variants.
 
-Every id of the JAX package's registry is known here; the ids whose
-model is not ported yet raise `NotImplementedError`.
+Every id of the JAX package's registry resolves to its config here.  The
+model of an arch whose sublayer kinds, FFN or frontend are not ported
+yet raises `NotImplementedError` when it is built (`models/model.py`,
+`models/transformer.py`, `models/layers.py`); the configs themselves
+feed the cost model and the job layer for every arch.
 """
 from __future__ import annotations
 
@@ -9,7 +12,7 @@ import importlib
 
 from repro_torch.configs.base import ArchConfig
 
-__all__ = ["ARCH_IDS", "PORTED", "get_config", "get_smoke_config"]
+__all__ = ["ARCH_IDS", "get_config", "get_smoke_config", "all_configs"]
 
 ARCH_IDS = [
     "arctic-480b",
@@ -24,21 +27,24 @@ ARCH_IDS = [
     "whisper-large-v3",
 ]
 
-# ported id -> module under repro_torch.configs
-PORTED = {
+_MODULES = {
+    "arctic-480b": "arctic_480b",
+    "dbrx-132b": "dbrx_132b",
+    "jamba-v0.1-52b": "jamba_v0_1_52b",
+    "starcoder2-3b": "starcoder2_3b",
     "qwen3-8b": "qwen3_8b",
+    "qwen1.5-4b": "qwen1_5_4b",
     "h2o-danube-3-4b": "h2o_danube_3_4b",
+    "xlstm-350m": "xlstm_350m",
+    "llava-next-mistral-7b": "llava_next_mistral_7b",
+    "whisper-large-v3": "whisper_large_v3",
 }
 
 
 def _module(arch_id: str):
-    if arch_id not in ARCH_IDS:
+    if arch_id not in _MODULES:
         raise KeyError(f"unknown arch {arch_id!r}; known: {ARCH_IDS}")
-    if arch_id not in PORTED:
-        raise NotImplementedError(
-            f"{arch_id} is not ported yet (ROADMAP queue 1, item 11: the rest of "
-            f"the model zoo); ported: {sorted(PORTED)}")
-    return importlib.import_module(f"repro_torch.configs.{PORTED[arch_id]}")
+    return importlib.import_module(f"repro_torch.configs.{_MODULES[arch_id]}")
 
 
 def get_config(arch_id: str) -> ArchConfig:
@@ -47,3 +53,7 @@ def get_config(arch_id: str) -> ArchConfig:
 
 def get_smoke_config(arch_id: str) -> ArchConfig:
     return _module(arch_id).smoke()
+
+
+def all_configs() -> dict[str, ArchConfig]:
+    return {a: get_config(a) for a in ARCH_IDS}

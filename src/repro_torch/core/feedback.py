@@ -45,7 +45,9 @@ def make_controller(profile: PathProfile) -> ControllerState:
 
 
 def _f32(v: float, like: torch.Tensor) -> torch.Tensor:
-    return torch.tensor(v, dtype=torch.float32, device=like.device)
+    # a fill on the device: ``torch.tensor(v, device=...)`` would copy from
+    # the host and wait for the card
+    return torch.full((), v, dtype=torch.float32, device=like.device)
 
 
 def severity_weights(stats: PathStats) -> torch.Tensor:

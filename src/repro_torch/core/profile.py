@@ -51,9 +51,9 @@ def make_profile(b: torch.Tensor, ell: int) -> PathProfile:
 def uniform_profile(n: int, ell: int, device=None) -> PathProfile:
     """As-even-as-possible integer split of m balls over n bins."""
     base, extra = divmod(1 << ell, n)
-    b = np.full((n,), base, dtype=np.int32)
-    b[:extra] += 1
-    return make_profile(torch.as_tensor(b, device=device), ell)
+    b = torch.full((n,), base, dtype=torch.int32, device=device)
+    b[:extra] += 1  # built on the device: no copy from the host
+    return make_profile(b, ell)
 
 
 def quantize_counts(p, ell: int) -> np.ndarray:

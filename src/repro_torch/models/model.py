@@ -19,6 +19,7 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.device import resolve_device
 from repro_torch.models.layers import COMPUTE_DTYPE, rms_norm
 from repro_torch.models.transformer import (
+    check_stack,
     init_stack,
     init_stack_cache,
     run_stack_decode,
@@ -37,6 +38,7 @@ def _check_family(cfg: ArchConfig) -> None:
         raise NotImplementedError(
             f"{cfg.name}: the encoder and modality frontends are not ported yet "
             f"(ROADMAP queue 1, item 11: the rest of the model zoo)")
+    check_stack(cfg)
 
 
 def init_params(generator: torch.Generator, cfg: ArchConfig) -> dict:

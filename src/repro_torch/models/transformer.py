@@ -23,6 +23,7 @@ import torch
 from repro_torch.configs.base import ArchConfig, LayerSpec
 from repro_torch.models.layers import (
     COMPUTE_DTYPE,
+    _check_mlp,
     attention,
     attention_decode,
     init_attention,
@@ -37,6 +38,7 @@ __all__ = [
     "run_stack_decode",
     "init_stack_cache",
     "cache_len_for",
+    "check_stack",
 ]
 
 
@@ -50,6 +52,15 @@ def _check_spec(spec: LayerSpec) -> None:
         raise _unported(f"sublayer kind {spec.kind!r}")
     if spec.ffn not in ("mlp", "none"):
         raise _unported(f"ffn {spec.ffn!r}")
+
+
+def check_stack(cfg: ArchConfig) -> None:
+    """Raise for the first sublayer kind or FFN of ``cfg`` that is not
+    ported, before anything is allocated."""
+    for spec in cfg.period:
+        _check_spec(spec)
+        if spec.ffn == "mlp":
+            _check_mlp(cfg)
 
 
 # ---------------------------------------------------------------------------

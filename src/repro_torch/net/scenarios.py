@@ -2,21 +2,29 @@
 
 Each constructor returns ``(TopologyParams, EventSchedule)``, built on the
 host with numpy exactly as the reference's (`repro.net.scenarios`) and
-handed over as tensors (on ``device`` when it is given).  Ported: the
-leaf-spine constructors (`incast` ... `crossjob_background`,
-`two_path_whack`), the uniform-grid pair family (`pair_scenarios`), the
-fat-tree family (`fat_tree_scenarios`) and stacking (`stack_pytrees`,
-`stack_scenarios`).  The job, cluster and correlated-failure families
-need modules the port does not have yet.
+handed over as tensors (on ``device`` when it is given): the leaf-spine
+constructors (`incast` ... `crossjob_background`, `two_path_whack`), the
+uniform-grid pair family (`pair_scenarios`), the fat-tree family
+(`fat_tree_scenarios`), stacking (`stack_pytrees`, `stack_scenarios`),
+the job library (`job_scenarios`: the same contention patterns on a ring
+of training workers), the cluster library (`cluster_scenarios`: J whole
+jobs co-scheduled on one fabric, `repro_torch.net.cluster`) and the four
+correlated-failure families (`correlated_*_scenarios`, built from the
+processes of `repro_torch.net.failures`; `CORRELATED_SCENARIOS`).
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Sequence, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from repro_torch.net.cluster import Cluster, cluster_topology, place_jobs
+from repro_torch.net.failures import (SRLGEvent, burst_flap_caps, cascade_caps, compose_caps,
+                                      fat_tree_cascade_waves, fat_tree_srlgs, hawkes_times,
+                                      leaf_spine_cascade_waves, leaf_spine_srlgs, srlg_caps)
+from repro_torch.net.jobs import JobSchedule
 from repro_torch.net.topology import (EventSchedule, FatTreeGrid, TopologyParams,
                                       downlink_id, fat_tree, leaf_spine, null_schedule,
                                       uplink_id)
@@ -24,7 +32,13 @@ from repro_torch.net.topology import (EventSchedule, FatTreeGrid, TopologyParams
 __all__ = ["Scenario", "incast", "oversubscription", "link_flap", "straggler_worker",
            "pfc_storm", "crossjob_background", "two_path_whack", "SCENARIOS",
            "pair_scenarios", "PAIR_SCENARIO_NAMES", "stack_pytrees", "stack_scenarios",
-           "fat_tree_scenarios", "FAT_TREE_SCENARIO_NAMES"]
+           "fat_tree_scenarios", "FAT_TREE_SCENARIO_NAMES", "job_scenarios",
+           "JOB_SCENARIO_NAMES", "ClusterScenario", "cluster_scenarios",
+           "CLUSTER_SCENARIO_NAMES", "correlated_pair_scenarios",
+           "CORRELATED_PAIR_SCENARIO_NAMES", "correlated_fat_tree_scenarios",
+           "CORRELATED_FAT_TREE_SCENARIO_NAMES", "correlated_job_scenarios",
+           "CORRELATED_JOB_SCENARIO_NAMES", "correlated_cluster_scenarios",
+           "CORRELATED_CLUSTER_SCENARIO_NAMES", "CORRELATED_SCENARIOS"]
 
 Scenario = Tuple[TopologyParams, EventSchedule]
 
@@ -339,3 +353,341 @@ def fat_tree_scenarios(flows: int = 16, n_pods: int = 4, leaves_per_pod: int = 2
     }
     assert tuple(out) == FAT_TREE_SCENARIO_NAMES
     return out
+
+
+# --- job scenarios: the same contention patterns on a RING placement ------
+
+JOB_SCENARIO_NAMES = ("uncontended", "oversubscribed", "link_flap", "straggler_worker",
+                      "pfc_storm", "crossjob_background")
+
+
+def job_scenarios(workers: int = 4, n_spines: int = 4, *, horizon: int = 2048,
+                  link_capacity: float = 8.0, host_rate: float = 32.0,
+                  oversub_ratio: float = 2.0, flap_period: int = 128,
+                  flap_duty: float = 0.5, storm_start: int = 48, storm_spread: int = 32,
+                  storm_duration: int = 384, bg_load: float = 0.6, bg_burst: int = 64,
+                  bg_gap: int = 64, bg_seed: int = 0, **kw) -> Dict[str, Scenario]:
+    """The contention library re-placed for a training job's ring
+    collective: worker w on leaf w sends to leaf (w+1) % workers, so every
+    entry shares ONE topology shape and differs only in its event schedule
+    / capacities (`repro_torch.net.jobs` reads each schedule from a step's
+    planned offset).  `uncontended` is the ETTR reference point."""
+    pairs = [(w, (w + 1) % workers) for w in range(workers)]
+    dev = kw.get("device")
+
+    def ring(cap):
+        return leaf_spine(workers, n_spines, pairs, uplink_capacity=cap, **kw)
+
+    topo = ring(link_capacity)
+    n_leaves, L = workers, topo.links
+    zeros = np.zeros((horizon, L), np.float32)
+    out: Dict[str, Scenario] = {
+        "uncontended": (topo, _null(topo)),
+        "oversubscribed": (ring(host_rate / (oversub_ratio * n_spines)), _null(topo)),
+        "link_flap": (topo, _schedule(
+            _flap_caps(n_leaves, n_spines, L, horizon, flap_period, flap_duty, 0),
+            zeros, dev)),
+        "straggler_worker": straggler_worker(workers, n_spines,
+                                             link_capacity=link_capacity, **kw),
+        "pfc_storm": (topo, _schedule(
+            _storm_caps(n_leaves, n_spines, L, horizon, storm_start, storm_spread,
+                        storm_duration), zeros, dev)),
+        "crossjob_background": (topo, _schedule(
+            np.ones((horizon, L), np.float32),
+            _background_arrivals(_host(topo.capacity), horizon, bg_load, bg_burst, bg_gap,
+                                 bg_seed), dev)),
+    }
+    assert tuple(out) == JOB_SCENARIO_NAMES
+    return out
+
+
+# --- cluster scenarios: J whole jobs co-scheduled on ONE fabric -----------
+
+CLUSTER_SCENARIO_NAMES = ("uncontended", "rings_overlapped", "staggered_start",
+                          "straggler_job_a", "flap_during_overlap", "oversubscribed")
+
+ClusterScenario = Tuple[Cluster, TopologyParams, EventSchedule]
+
+
+def cluster_scenarios(jobs: Sequence[JobSchedule], n_spines: int = 4, *,
+                      horizon: int = 2048, link_capacity: float = 8.0,
+                      host_rate: float = 32.0, oversub_ratio: float = 2.0,
+                      stagger_steps: Optional[int] = None, straggler_factor: float = 0.25,
+                      flap_period: int = 128, flap_duty: float = 0.5, flap_spine: int = 0,
+                      **kw) -> Dict[str, ClusterScenario]:
+    """Co-scheduled multi-job contention library for `repro_torch.net.cluster`:
+    {name: (Cluster, TopologyParams, EventSchedule)} for every entry of
+    `CLUSTER_SCENARIO_NAMES`:
+
+      * uncontended        — disjoint leaf blocks (the jobs share no link);
+      * rings_overlapped   — every job's worker w on leaf w: the jobs share
+                             every link their rings touch;
+      * staggered_start    — overlapped rings, job j starts j *
+                             `stagger_steps` rounds late (default: half of
+                             job 0's schedule);
+      * straggler_job_a    — overlapped rings; job A's worker-0 uplinks at
+                             `straggler_factor` of nominal;
+      * flap_during_overlap— overlapped rings; spine `flap_spine` flaps on
+                             a duty cycle while both jobs are live;
+      * oversubscribed     — overlapped rings with the spine layer at
+                             1/`oversub_ratio` of the aggregate host demand.
+
+    Every placement is built on the largest placement's leaf grid, so the
+    family shares one link-array shape and stacks.
+    """
+    jobs = list(jobs)
+    dev = kw.get("device")
+    if stagger_steps is None:
+        stagger_steps = max(1, jobs[0].total_steps // 2)
+    coloc = place_jobs(jobs, colocated=True)
+    disjoint = place_jobs(jobs, colocated=False)
+    staggered = place_jobs(jobs, colocated=True,
+                           start_steps=[j * stagger_steps for j in range(len(jobs))])
+    n_leaves = max(coloc.n_leaves, disjoint.n_leaves)
+    topo_c = cluster_topology(coloc, n_spines, n_leaves=n_leaves,
+                              uplink_capacity=link_capacity, **kw)
+    topo_d = cluster_topology(disjoint, n_spines, n_leaves=n_leaves,
+                              uplink_capacity=link_capacity, **kw)
+    topo_o = cluster_topology(coloc, n_spines, n_leaves=n_leaves,
+                              uplink_capacity=host_rate / (oversub_ratio * n_spines), **kw)
+    L = topo_c.links
+
+    straggle = np.ones((1, L), np.float32)
+    leaf_a0 = coloc.jobs[0].leaves[0]
+    for s in range(n_spines):
+        straggle[0, uplink_id(leaf_a0, s, n_leaves, n_spines)] = straggler_factor
+
+    out: Dict[str, ClusterScenario] = {
+        "uncontended": (disjoint, topo_d, _null(topo_d)),
+        "rings_overlapped": (coloc, topo_c, _null(topo_c)),
+        "staggered_start": (staggered, topo_c, _null(topo_c)),
+        "straggler_job_a": (coloc, topo_c,
+                            _schedule(straggle, np.zeros((1, L), np.float32), dev)),
+        "flap_during_overlap": (coloc, topo_c, _schedule(
+            _flap_caps(n_leaves, n_spines, L, horizon, flap_period, flap_duty, flap_spine),
+            np.zeros((horizon, L), np.float32), dev)),
+        "oversubscribed": (coloc, topo_o, _null(topo_o)),
+    }
+    assert tuple(out) == CLUSTER_SCENARIO_NAMES
+    return out
+
+
+# --- correlated failure scenarios (repro_torch.net.failures) --------------
+#
+# The correlated processes (SRLG group events, hop-by-hop PFC cascades,
+# Hawkes burst flaps) placed on the same uniform grids as the libraries
+# above: one topology shape per family, schedules differ per entry.  Event
+# timing is in fractions of `horizon` (onset at H/4, restore at H/2).
+# Each of the pair and fat-tree families ends with a *blackout* entry that
+# never restores and strands in-flight flows.
+
+CORRELATED_PAIR_SCENARIO_NAMES = ("srlg_spine_down", "srlg_spine_derate",
+                                  "srlg_double_fault", "pfc_cascade", "burst_flaps",
+                                  "derate_cascade", "blackout")
+
+
+def _flap_times(H: int, mu, branching: float, tau, seed: int) -> np.ndarray:
+    """Hawkes burst-flap times on [H/4, 5H/8)."""
+    return H // 4 + hawkes_times(
+        H * 3 // 8, mu=mu if mu is not None else 4.0 / H, branching=branching,
+        tau=tau if tau is not None else max(8.0, H / 64), seed=seed)
+
+
+def correlated_pair_scenarios(flows: int = 8, n_spines: int = 4, *, horizon: int = 2048,
+                              link_capacity: float = 8.0, derate_severity: float = 0.75,
+                              cascade_hop_delay: Optional[int] = None,
+                              cascade_decay: float = 0.6, flap_mu: Optional[float] = None,
+                              flap_branching: float = 0.7, flap_tau: Optional[float] = None,
+                              flap_len: Optional[int] = None, flap_seed: int = 0,
+                              **kw) -> Dict[str, Scenario]:
+    """Correlated failures on the uniform leaf-spine pair grid (disjoint
+    pairs 2f -> 2f+1): spine 0's SRLG down over [H/4, H/2)
+    (``srlg_spine_down``), spines 0 and 1 derated to ``1 -
+    derate_severity`` (``srlg_spine_derate``), two staggered overlapping
+    outages (``srlg_double_fault``), the upstream PFC cascade
+    (``pfc_cascade``), Hawkes burst flaps on the spine SRLGs over [H/4,
+    5H/8) (``burst_flaps``), spine 1 derated over [H/8, 5H/8) with the
+    cascade inside it (``derate_cascade``) and every spine down from H/4
+    with no restore (``blackout``)."""
+    n_leaves = 2 * flows
+    pairs = [(2 * f, 2 * f + 1) for f in range(flows)]
+    dev = kw.get("device")
+    topo = leaf_spine(n_leaves, n_spines, pairs, uplink_capacity=link_capacity, **kw)
+    L, H = topo.links, horizon
+    t_on, t_off = H // 4, H // 2
+    groups = leaf_spine_srlgs(n_leaves, n_spines)
+    spine0, spine1 = groups["spine0"], groups["spine1"]
+    waves = leaf_spine_cascade_waves(n_leaves, n_spines)
+    hop = cascade_hop_delay if cascade_hop_delay is not None else max(1, H // 128)
+    f_len = flap_len if flap_len is not None else max(4, H // 64)
+    times = _flap_times(H, flap_mu, flap_branching, flap_tau, flap_seed)
+    zeros = np.zeros((H, L), np.float32)
+
+    def sched(cap):
+        return _schedule(cap, zeros, dev)
+
+    cascade = cascade_caps(L, H, waves, start=t_on, duration=t_off - t_on, hop_delay=hop,
+                           severity=1.0, decay=cascade_decay)
+    out: Dict[str, Scenario] = {
+        "srlg_spine_down": (topo, sched(srlg_caps(L, H, [SRLGEvent(spine0, t_on, t_off)]))),
+        "srlg_spine_derate": (topo, sched(srlg_caps(L, H, [
+            SRLGEvent(spine0, t_on, t_off, derate_severity),
+            SRLGEvent(spine1, t_on, t_off, derate_severity)]))),
+        "srlg_double_fault": (topo, sched(srlg_caps(L, H, [
+            SRLGEvent(spine0, t_on, t_off), SRLGEvent(spine1, H * 3 // 8, H * 5 // 8)]))),
+        "pfc_cascade": (topo, sched(cascade)),
+        "burst_flaps": (topo, sched(burst_flap_caps(L, H, list(groups.values()), times,
+                                                    flap_len=f_len, seed=flap_seed))),
+        "derate_cascade": (topo, sched(compose_caps(
+            srlg_caps(L, H, [SRLGEvent(spine1, H // 8, H * 5 // 8, derate_severity)]),
+            cascade))),
+        "blackout": (topo, sched(srlg_caps(L, H, [SRLGEvent(g, t_on, H)
+                                                  for g in groups.values()]))),
+    }
+    assert tuple(out) == CORRELATED_PAIR_SCENARIO_NAMES
+    return out
+
+
+CORRELATED_FAT_TREE_SCENARIO_NAMES = ("srlg_pod_spine_down", "srlg_core_plane_down",
+                                      "srlg_pod_isolated", "pfc_cascade", "burst_flaps",
+                                      "plane_maintenance_cascade", "core_blackout")
+
+
+def correlated_fat_tree_scenarios(flows: int = 16, n_pods: int = 4, leaves_per_pod: int = 2,
+                                  spines_per_pod: int = 2, cores_per_spine: int = 2, *,
+                                  horizon: int = 2048, link_capacity: float = 8.0,
+                                  derate_severity: float = 0.75,
+                                  cascade_hop_delay: Optional[int] = None,
+                                  cascade_decay: float = 0.6,
+                                  flap_mu: Optional[float] = None,
+                                  flap_branching: float = 0.7,
+                                  flap_tau: Optional[float] = None,
+                                  flap_len: Optional[int] = None, flap_seed: int = 0,
+                                  **kw) -> Dict[str, Scenario]:
+    """Correlated failures on the 3-tier fat-tree grid (the uniform
+    inter-pod placement of `fat_tree_scenarios`): pod 0 / spine 0's ASIC
+    SRLG down over [H/4, H/2) (``srlg_pod_spine_down``), core plane 0's
+    optics down (``srlg_core_plane_down``), pod 0's uplink bundle down
+    (``srlg_pod_isolated``), the four-tier upstream PFC cascade
+    (``pfc_cascade``), Hawkes burst flaps on the pod-spine SRLGs
+    (``burst_flaps``), core plane 1 derated over [H/8, 5H/8) with the
+    cascade inside it (``plane_maintenance_cascade``) and every core
+    plane down from H/4 with no restore (``core_blackout``)."""
+    grid = FatTreeGrid(n_pods, leaves_per_pod, spines_per_pod, cores_per_spine)
+    if n_pods < 2:
+        raise ValueError("correlated fat-tree scenarios need >= 2 pods")
+    dev = kw.get("device")
+    n_leaves = grid.n_leaves
+    uniform = [(f % n_leaves, (f + leaves_per_pod) % n_leaves) for f in range(flows)]
+    topo = fat_tree(n_pods, leaves_per_pod, spines_per_pod, cores_per_spine, uniform,
+                    uplink_capacity=link_capacity, **kw)
+    L, H = topo.links, horizon
+    t_on, t_off = H // 4, H // 2
+    srlgs = fat_tree_srlgs(grid)
+    waves = fat_tree_cascade_waves(grid)
+    hop = cascade_hop_delay if cascade_hop_delay is not None else max(1, H // 128)
+    f_len = flap_len if flap_len is not None else max(4, H // 64)
+    pod_spine_groups = [srlgs[f"pod{p}_spine{s}"]
+                        for p in range(n_pods) for s in range(spines_per_pod)]
+    times = _flap_times(H, flap_mu, flap_branching, flap_tau, flap_seed)
+    zeros = np.zeros((H, L), np.float32)
+
+    def sched(cap):
+        return _schedule(cap, zeros, dev)
+
+    cascade = cascade_caps(L, H, waves, start=t_on, duration=t_off - t_on, hop_delay=hop,
+                           severity=1.0, decay=cascade_decay)
+    out: Dict[str, Scenario] = {
+        "srlg_pod_spine_down": (topo, sched(srlg_caps(
+            L, H, [SRLGEvent(srlgs["pod0_spine0"], t_on, t_off)]))),
+        "srlg_core_plane_down": (topo, sched(srlg_caps(
+            L, H, [SRLGEvent(srlgs["core_plane0"], t_on, t_off)]))),
+        "srlg_pod_isolated": (topo, sched(srlg_caps(
+            L, H, [SRLGEvent(srlgs["pod0_uplinks"], t_on, t_off)]))),
+        "pfc_cascade": (topo, sched(cascade)),
+        "burst_flaps": (topo, sched(burst_flap_caps(L, H, pod_spine_groups, times,
+                                                    flap_len=f_len, seed=flap_seed))),
+        "plane_maintenance_cascade": (topo, sched(compose_caps(
+            srlg_caps(L, H, [SRLGEvent(srlgs[f"core_plane{min(1, spines_per_pod - 1)}"],
+                                       H // 8, H * 5 // 8, derate_severity)]),
+            cascade))),
+        "core_blackout": (topo, sched(srlg_caps(L, H, [
+            SRLGEvent(srlgs[f"core_plane{s}"], t_on, H) for s in range(spines_per_pod)]))),
+    }
+    assert tuple(out) == CORRELATED_FAT_TREE_SCENARIO_NAMES
+    return out
+
+
+CORRELATED_JOB_SCENARIO_NAMES = ("srlg_spine_down", "pfc_cascade", "burst_flaps")
+
+
+def _correlated_ring(topo, n_leaves, n_spines, H, cascade_hop_delay, cascade_decay,
+                     flap_seed, dev):
+    """The three correlated entries on a ring placement (job and cluster
+    families): spine 0's SRLG down over [H/4, H/2), the PFC cascade rooted
+    at leaf 1 % n_leaves, Hawkes burst flaps over the spine SRLGs."""
+    L = topo.links
+    t_on, t_off = H // 4, H // 2
+    groups = leaf_spine_srlgs(n_leaves, n_spines)
+    waves = leaf_spine_cascade_waves(n_leaves, n_spines, root_leaf=1 % n_leaves)
+    hop = cascade_hop_delay if cascade_hop_delay is not None else max(1, H // 128)
+    times = _flap_times(H, None, 0.7, None, flap_seed)
+    zeros = np.zeros((H, L), np.float32)
+    return {
+        "srlg_spine_down": _schedule(
+            srlg_caps(L, H, [SRLGEvent(groups["spine0"], t_on, t_off)]), zeros, dev),
+        "pfc_cascade": _schedule(
+            cascade_caps(L, H, waves, start=t_on, duration=t_off - t_on, hop_delay=hop,
+                         severity=1.0, decay=cascade_decay), zeros, dev),
+        "burst_flaps": _schedule(
+            burst_flap_caps(L, H, list(groups.values()), times, flap_len=max(4, H // 64),
+                            seed=flap_seed), zeros, dev),
+    }
+
+
+def correlated_job_scenarios(workers: int = 4, n_spines: int = 4, *, horizon: int = 2048,
+                             link_capacity: float = 8.0,
+                             cascade_hop_delay: Optional[int] = None,
+                             cascade_decay: float = 0.6, flap_seed: int = 0,
+                             **kw) -> Dict[str, Scenario]:
+    """The correlated processes on a training job's ring (worker w ->
+    worker (w+1) % workers), for `repro_torch.net.jobs`: one spine-ASIC
+    SRLG outage [H/4, H/2), the upstream PFC cascade and Hawkes burst
+    flaps over the spine SRLGs; every entry shares the ring topology."""
+    pairs = [(w, (w + 1) % workers) for w in range(workers)]
+    topo = leaf_spine(workers, n_spines, pairs, uplink_capacity=link_capacity, **kw)
+    scheds = _correlated_ring(topo, workers, n_spines, horizon, cascade_hop_delay,
+                              cascade_decay, flap_seed, kw.get("device"))
+    out: Dict[str, Scenario] = {name: (topo, s) for name, s in scheds.items()}
+    assert tuple(out) == CORRELATED_JOB_SCENARIO_NAMES
+    return out
+
+
+CORRELATED_CLUSTER_SCENARIO_NAMES = ("srlg_spine_down", "pfc_cascade", "burst_flaps")
+
+
+def correlated_cluster_scenarios(jobs: Sequence[JobSchedule], n_spines: int = 4, *,
+                                 horizon: int = 2048, link_capacity: float = 8.0,
+                                 cascade_hop_delay: Optional[int] = None,
+                                 cascade_decay: float = 0.6, flap_seed: int = 0,
+                                 **kw) -> Dict[str, ClusterScenario]:
+    """Correlated failures under co-scheduled jobs: the overlapped-rings
+    placement of `cluster_scenarios` with a spine-ASIC SRLG outage, the PFC
+    cascade and Hawkes burst flaps layered on top."""
+    coloc = place_jobs(list(jobs), colocated=True)
+    topo = cluster_topology(coloc, n_spines, n_leaves=coloc.n_leaves,
+                            uplink_capacity=link_capacity, **kw)
+    scheds = _correlated_ring(topo, coloc.n_leaves, n_spines, horizon, cascade_hop_delay,
+                              cascade_decay, flap_seed, kw.get("device"))
+    out: Dict[str, ClusterScenario] = {name: (coloc, topo, s) for name, s in scheds.items()}
+    assert tuple(out) == CORRELATED_CLUSTER_SCENARIO_NAMES
+    return out
+
+
+# family name -> correlated library constructor
+CORRELATED_SCENARIOS: Dict[str, callable] = {
+    "pair": correlated_pair_scenarios,
+    "fat_tree": correlated_fat_tree_scenarios,
+    "job": correlated_job_scenarios,
+    "cluster": correlated_cluster_scenarios,
+}

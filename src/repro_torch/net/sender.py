@@ -168,7 +168,7 @@ def completion_need(n_packets, coded: bool, code_overhead: float,
     at most 4 packets waive the overhead."""
     npk = torch.as_tensor(n_packets, device=device).to(torch.float32)
     if coded:
-        overhead = npk * torch.tensor(code_overhead, dtype=torch.float32, device=device)
+        overhead = npk * torch.full((), code_overhead, dtype=torch.float32, device=device)
         need = torch.floor(npk + overhead) + 1.0
     else:
         need = npk
@@ -278,7 +278,9 @@ def run_sender(spec: SenderSpec, sp: SenderParams, n_packets, horizon: int, *,
     rng_hi = None
     if uses_rng(policy, pstate0):
         rng_hi = n if policy != Policy.RAND_ADAPTIVE else ctrl0.profile.m
-    cwnd = torch.tensor(sp.cwnd, dtype=torch.float32, device=dev)
+    # scalars are filled on the device (`torch.tensor` of a host value
+    # would copy it and wait for the card)
+    cwnd = torch.full((), sp.cwnd, dtype=torch.float32, device=dev)
     zeros = torch.zeros(lead, device=dev)
 
     def tick(c: _Carry, u: torch.Tensor, rand_lanes) -> _Carry:
@@ -380,7 +382,7 @@ def run_sender(spec: SenderSpec, sp: SenderParams, n_packets, horizon: int, *,
 
     done_at = carry.done_at
     cct = torch.where(done_at >= 0, done_at.to(torch.float32),
-                      torch.tensor(float(horizon), device=dev))
+                      torch.full((), float(horizon), device=dev))
     if link_fn is not None:
         link_served, link_busy = link_fn(carry.fabric)
     else:
@@ -390,7 +392,7 @@ def run_sender(spec: SenderSpec, sp: SenderParams, n_packets, horizon: int, *,
                        final_b=carry.ctrl.profile.b, received=received_fn(carry.fabric),
                        finished=done_at >= 0, link_served=link_served,
                        link_busy=link_busy,
-                       ticks_run=torch.tensor(ticks_run, dtype=torch.int64, device=dev))
+                       ticks_run=torch.full((), ticks_run, dtype=torch.int64, device=dev))
     return result if tel is None else (result, tel)
 
 

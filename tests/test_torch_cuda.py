@@ -551,3 +551,69 @@ def test_telemetry_record_makes_no_host_wait(cuda):
         torch.cuda.set_sync_debug_mode(0)
     assert int(frame.count) == 1
     assert frame.tick.cpu().tolist() == [12] + [0] * 7
+
+
+def _ring_job(cuda):
+    from repro_torch.net import jobs, scenarios, sender
+
+    job = jobs.compile_job("qwen3-8b", workers=4, tp=8, iterations=1, rate=32, max_shard=48)
+    topo, sched = scenarios.job_scenarios(workers=4, horizon=256)["link_flap"]
+    return jobs, sender, job, sender.to_device(topo, cuda), sched
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("policy", ["WAM", "ECMP", "CC_COUPLED"])
+def test_job_step_makes_no_host_wait(cuda, policy):
+    """One job step without early exit (whose chunk check is the one wait
+    a run makes) runs under torch's sync debug mode "error": no copy to or
+    from the host, the controller's scalars included.  The step runs once
+    before, as a run's first step builds the link CSR and loads the
+    kernels."""
+    jobs, sender, job, topo, sched = _ring_job(cuda)
+    pol = sender.Policy[policy]
+    spec = sender.spec_for_policies(sender.SenderSpec(rate_cap=32), [pol])
+    sp = sender.sender_params(pol, rate=32)
+    shard, _, offsets = jobs.step_table(job)
+    scheds = jobs.scheduled_events(sched, offsets[:1], 48, device=cuda)
+    shard = torch.as_tensor(shard[:1], device=cuda)
+    from repro_torch import random as prng
+    key = prng.PRNGKey(0, device=cuda)
+    want = jobs.run_job_steps(topo, scheds, spec, sp, shard, key, 48, device=cuda)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = jobs.run_job_steps(topo, scheds, spec, sp, shard, key, 48, device=cuda)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.cuda
+def test_job_and_cluster_runs_on_the_card_equal_the_cpu(cuda):
+    """`run_job` (WAM, telemetry) and `run_cluster_rounds` on the card
+    equal the same calls on the CPU, which the CPU tests hold to the JAX
+    package."""
+    import dataclasses
+
+    from repro_torch import random as prng
+    from repro_torch.net import cluster, scenarios, telemetry
+
+    jobs, sender, job, topo, sched = _ring_job(cuda)
+    spec = sender.SenderSpec(rate_cap=32, early_exit=True, exit_chunk=16,
+                             telemetry=telemetry.TelemetrySpec(stride=4, window=16))
+    wam = sender.sender_params(sender.Policy.WAM, rate=32)
+    key = prng.PRNGKey(3)
+    runs = [jobs.run_job(topo, sched, spec, wam, job, key, 256, device=d) for d in (cuda, "cpu")]
+    for k in ("step_cct", "ettr", "exposed_comm_ticks", "finished"):
+        assert np.array_equal(getattr(runs[0][0], k), getattr(runs[1][0], k)), k
+    for f in dataclasses.fields(runs[1][1]):
+        assert torch.equal(getattr(runs[0][1], f.name).cpu(), getattr(runs[1][1], f.name))
+    js = [jobs.compile_job(a, workers=4, tp=8, iterations=1, rate=32, max_shard=48)
+          for a in ("xlstm-350m", "qwen3-8b")]
+    placed, ctopo, csched = scenarios.cluster_scenarios(js, horizon=256)["staggered_start"]
+    scheds, sizes = cluster.cluster_inputs(placed, csched, 256)
+    bare = dataclasses.replace(spec, telemetry=None)
+    raw = [cluster.run_cluster_rounds(ctopo, scheds, bare, wam, sizes, key, 256, device=d)
+           for d in (cuda, "cpu")]
+    for k in ("cct", "finished", "link_served", "link_busy"):
+        assert torch.equal(raw[0][k].cpu(), raw[1][k]), k

@@ -171,7 +171,7 @@ def test_sliding_window_wraps_the_ring_buffer(runs):
     assert runs["qwen3-8b"]["run"].cache["sub0"]["k"].shape[2] == S + STEPS + 1
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", jregistry.ARCH_IDS)
 def test_configs_equal_the_reference(arch):
     for port, ref in ((registry.get_config(arch), jregistry.get_config(arch)),
                       (registry.get_smoke_config(arch), jregistry.get_smoke_config(arch))):
@@ -180,12 +180,13 @@ def test_configs_equal_the_reference(arch):
 
 
 def test_registry_knows_every_reference_id():
+    """Every id resolves, and `all_configs` equals the reference's."""
     assert registry.ARCH_IDS == jregistry.ARCH_IDS
+    port, ref = registry.all_configs(), jregistry.all_configs()
+    assert list(port) == list(ref) == registry.ARCH_IDS
     for arch in registry.ARCH_IDS:
-        if arch in registry.PORTED:
-            continue
-        with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 11"):
-            registry.get_config(arch)
+        assert dataclasses.asdict(port[arch]) == dataclasses.asdict(ref[arch])
+        assert registry.get_config(arch) is port[arch]
     with pytest.raises(KeyError):
         registry.get_smoke_config("no-such-model")
 
@@ -245,6 +246,13 @@ def test_unported_kinds_raise():
         M.init_params(gen, dataclasses.replace(cfg, encoder_layers=2))
     with pytest.raises(NotImplementedError):
         M.init_params(gen, dataclasses.replace(cfg, mlp_kind="gelu"))
+    # the real configs of an MoE, an xLSTM and an encoder-decoder arch
+    # resolve, and their models raise until their kinds are ported
+    for arch in ("dbrx-132b", "xlstm-350m", "whisper-large-v3"):
+        with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 11"):
+            M.init_params(gen, registry.get_config(arch))
+        with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 11"):
+            M.make_cache(registry.get_config(arch), 1, 8, device="cpu")
 
 
 def test_qkv_with_biases_matches_reference(jax_model):

@@ -133,9 +133,10 @@ def test_entry_points_default_to_the_card():
         pytest.skip("a card is present: the default device is usable here")
     from repro_torch import random as prng
     from repro_torch.configs.registry import get_smoke_config
-    from repro_torch.launch import serve
+    from repro_torch.launch import clustersim, jobsim, serve
     from repro_torch.models import model
-    from repro_torch.net import fountain, scenarios, sender, topology, transport
+    from repro_torch.net import (cluster, collectives, fountain, jobs, scenarios, sender,
+                                 topology, transport)
     from repro_torch.serve_router import Router
     smoke = _load("chip_smoke", ROOT / "chip_smoke.py")
     cfg = transport.TransportConfig(policy=transport.Policy.WAM, rate=4)
@@ -162,6 +163,33 @@ def test_entry_points_default_to_the_card():
         lambda: Router([1, 1]),
         lambda: model.make_cache(get_smoke_config("qwen3-8b"), 1, 8),
         lambda: serve.main(["--arch", "qwen3-8b", "--smoke"]),
+    ]
+    ring = collectives.ring_topology(4)
+    job = jobs.compile_job("qwen3-8b", max_shard=16)
+    jscheds, shard = jobs.job_step_inputs([job], sched, 16, device="cpu")
+    placed = cluster.place_jobs([job, job])
+    ctopo = cluster.cluster_topology(placed)
+    cscheds, sizes = cluster.cluster_inputs(placed, sched, 16, device="cpu")
+    ccfg = collectives.CollectiveConfig(workers=4, shard_packets=8, horizon=16)
+    calls += [
+        lambda: jobs.run_job(ring, sched, cfg.spec(), cfg.params(), job, key, 16),
+        lambda: jobs.sweep_job(ring, sched, cfg.spec(), sweep, [job], keys, 16),
+        lambda: jobs.run_job_steps(ring, jobs.scheduled_events(sched, jobs.step_table(job)[2],
+                                                                16, device="cpu"),
+                                   cfg.spec(), cfg.params(), shard[0], key, 16),
+        lambda: jobs.sweep_job_steps(ring, jscheds, cfg.spec(), sweep, shard, keys, 16),
+        lambda: cluster.run_cluster(ctopo, sched, cfg.spec(), cfg.params(), placed, key, 16),
+        lambda: cluster.sweep_cluster(ctopo, sched, cfg.spec(), sweep, placed, keys, 16),
+        lambda: cluster.run_cluster_rounds(ctopo, cscheds, cfg.spec(), cfg.params(), sizes,
+                                           key, 16),
+        lambda: cluster.sweep_cluster_rounds(ctopo, cscheds, cfg.spec(), sweep, sizes, keys,
+                                             16),
+        lambda: collectives.allreduce_cct_shared(ring, sched, cfg, ccfg, key),
+        lambda: collectives.allgather_cct_shared(ring, sched, cfg, ccfg, key),
+        lambda: collectives.sweep_ring_cct_shared(ring, sched, cfg.spec(), sweep, 8, keys, 16),
+        lambda: collectives.allreduce_cct(smoke.golden_fabric(4, "cpu"), cfg, ccfg, key),
+        lambda: jobsim.main(["--max-shard", "16", "--horizon", "16", "--iterations", "1"]),
+        lambda: clustersim.main(["--max-shard", "16", "--horizon", "16"]),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -214,3 +242,58 @@ def test_convert_carries_reference_parameters():
     assert convert.prng_key(np.asarray(key)).tolist() == np.asarray(key).tolist()
     with pytest.raises(ValueError):
         convert.prng_key(np.zeros(3, np.uint32))
+
+
+def test_job_and_cluster_clis_write_the_library_calls_payload(tmp_path, capsys):
+    """`jobsim` and `clustersim` with ``--device cpu --json`` at smoke
+    sizes: the payload equals the one built from the library calls the
+    CLI stands for (the reference's keys, the same numbers)."""
+    import json
+
+    from repro_torch import random as prng
+    from repro_torch.launch import clustersim, jobsim
+    from repro_torch.net import cluster, jobs, scenarios, sender
+    from repro_torch.net.transport import Policy
+
+    policies = (Policy.WAM, Policy.ECMP)
+    spec = sender.SenderSpec(rate_cap=32)
+    sp = sender.stack_params([sender.sender_params(p, rate=32) for p in policies])
+    keys = prng.split(prng.PRNGKey(0), 1)
+    common = ["--policies", "WAM,ECMP", "--draws", "1", "--iterations", "1",
+              "--max-shard", "48", "--horizon", "48", "--device", "cpu", "--json"]
+
+    jobsim.main(["--arch", "xlstm-350m", "--scenario", "pfc_storm"] + common
+                + [str(tmp_path / "job.json")])
+    job = jobs.compile_job("xlstm-350m", workers=4, tp=8, iterations=1, rate=32,
+                           max_shard=48)
+    topo, sched = scenarios.job_scenarios(workers=4, horizon=2048)["pfc_storm"]
+    out = jobs.sweep_job(topo, sched, spec, sp, [job], keys, horizon=48, device="cpu")
+    want = {"arch": "xlstm-350m", "scenario": "pfc_storm", "workers": 4, "iterations": 1,
+            "compute_ticks": job.compute_ticks, "policies": {
+                p.name: {"ettr_mean": float(out["ettr"][i, :, 0].mean()),
+                         "ettr_min": float(out["ettr"][i, :, 0].min()),
+                         "exposed_ticks_mean": float(out["exposed"][i, :, 0].mean())}
+                for i, p in enumerate(policies)}}
+    assert json.loads((tmp_path / "job.json").read_text()) == want
+
+    clustersim.main(["--archs", "xlstm-350m,qwen3-8b", "--scenario", "rings_overlapped"]
+                    + common + [str(tmp_path / "cluster.json")])
+    js = [jobs.compile_job(a, workers=4, tp=8, iterations=1, rate=32, max_shard=48)
+          for a in ("xlstm-350m", "qwen3-8b")]
+    placed, topo, sched = scenarios.cluster_scenarios(js, horizon=2048)["rings_overlapped"]
+    r = cluster.sweep_cluster(topo, sched, spec, sp, placed, keys, 48, device="cpu")
+    want = {"archs": ["xlstm-350m", "qwen3-8b"], "scenario": "rings_overlapped",
+            "workers": 4, "iterations": 1, "rounds": placed.rounds,
+            "finished": bool(np.all(r.finished)), "policies": {
+                p.name: {"jobs": {f"job{j}_{cj.job.arch}": {
+                    "ettr": float(r.ettr[i, :, j].mean()),
+                    "solo_ettr": float(r.solo_ettr[i, :, j].mean()),
+                    "slowdown": float(r.slowdown[i, :, j].mean())}
+                    for j, cj in enumerate(placed.jobs)},
+                    "jain": float(r.jain[i].mean()),
+                    "link_util_max": float(r.link_util[i].mean(axis=0).max())}
+                for i, p in enumerate(policies)}}
+    assert json.loads((tmp_path / "cluster.json").read_text()) == want
+    printed = capsys.readouterr().out
+    assert "job xlstm-350m: DP=4 TP=8 iterations=1" in printed
+    assert "cluster: 2 jobs on 4 leaves, 8 coupled flows, 9 rounds" in printed
