@@ -88,7 +88,7 @@ Phases (the first that fails ends the run with a nonzero exit):
    4,096 requests with one replica 8x slower in windows 50-119; every
    replica id, sequence number, severity weight and share must equal the
    router's CPU run.
-9. Dense serving (the model zoo's path): (a) `smoke()` of qwen3-8b and of
+9. Dense serving: (a) `smoke()` of qwen3-8b and of
    h2o-danube-3-4b on the card, held to the same run on the CPU (which
    the CPU tests hold to the JAX model); (b) full width: qwen3-8b, all 36
    layers, f32 weights from a seeded generator on the card, 4 prompts of
@@ -102,14 +102,33 @@ Phases (the first that fails ends the run with a nonzero exit):
    the CUDA-core kernel, each case printed with its route and the
    wrapper's aligning copies) and `flash_decode` to their plain versions
    (the CPU tests' shapes, a head dim of 20, a misaligned view, key counts
-   that are not a multiple of the key tile, and the full-width prefill and
-   decode shapes; for `flash_decode` also empty rows, the output bit-equal
+   that are not a multiple of the key tile, the full-width prefill and
+   decode shapes, and the zoo's: whisper's non-causal encoder (1,500
+   frames, D 64) and cross-attention (384 queries over 1,500 keys),
+   starcoder2's group of 12 with a 4,096 window over 8,192 keys, arctic's
+   group of 7, decode over 1,500 full cross-attention slots at D 64 and at
+   groups 6, 7 and 12; for `flash_decode` also empty rows, the output bit-equal
    to `normalise` of the partials, one launch a call, an int64 kv_len out
    of [0, Sk], the model's stacked-cache slice read in place, a view copied
    once, and three CUDA-graph replays of one call) and times them beside
    the plain versions and `scaled_dot_product_attention`.
 
-Each path of phases 4-9 runs with the kernels' launch counts set to 0
+10. The rest of the model zoo (phase `zoo`, within ~150 s): (a) the smoke
+   configs of qwen1.5-4b, starcoder2-3b, dbrx-132b, arctic-480b,
+   jamba-v0.1-52b, xlstm-350m, whisper-large-v3 and llava-next-mistral-7b,
+   and qwen3-8b's with the int8 KV cache, on the card against the CPU, as
+   in 9 (a) (patches and frames drawn from a seed; the MoE choices of the
+   CPU run replayed on the card, `moe.Routes`), with caches and states and
+   each run's launch counts; (b) jamba-v0.1-52b at its published widths
+   cut to one period of 8 of its 32 layers (7 mamba, 1 attention, 4 MoE, 4
+   MLP; ~27 GB of bf16 weights), 4 x 2,048 prompt tokens, 64 generated;
+   (c) whisper-large-v3 whole (32 encoder and 32 decoder layers, d 1,280),
+   1,500 frames, 4 x 384 prompt tokens, 64 generated; (b) and (c) as 9
+   (b): prefill and decode times, peak memory and launches, then the plain
+   versions' run teacher-forced on tokens and MoE choices within
+   `FULL_RMS_TOL` / `FULL_MAX_TOL`.
+
+Each path of phases 4-10 runs with the kernels' launch counts set to 0
 just before it and read just after; a kernel row's ``launches`` is its
 total over those paths (the comparisons of phases 5 and 6 not counted).  The
 last lines are the card's name and power limit, one JSON object with a
@@ -165,8 +184,10 @@ from repro_torch.kernels.lt_encode import (  # noqa: E402
 )
 from repro_torch.kernels.link_fold import link_fold, link_fold_plain, link_segments  # noqa: E402
 from repro_torch.kernels.lt_encode import plan as lt_plan  # noqa: E402
-from repro_torch.launch.serve import generate, prompts  # noqa: E402
+from repro_torch.launch.serve import generate, serve_batch  # noqa: E402
 from repro_torch.models import model as M  # noqa: E402
+from repro_torch.models.layers import kv_dequantize  # noqa: E402
+from repro_torch.models.moe import Routes  # noqa: E402
 from repro_torch.kernels.spray_select import (  # noqa: E402
     spray_select,
     spray_select_plain,
@@ -310,8 +331,19 @@ CODED_R = int(CODED_K * 1.6) + 32
 ROUTER_REPLICAS, ROUTER_WINDOWS, ROUTER_BATCH, ROUTER_SLOW = 64, 200, 4096, 7
 # dense serving: qwen3-8b at full width, 4 prompts of 2,048 tokens, 64 tokens
 DENSE_ARCH, DENSE_BATCH, DENSE_PROMPT, DENSE_GEN = "qwen3-8b", 4, 2048, 64
-# the smoke-size runs: tests/test_torch_model.py's shapes and tolerance
-SMOKE_BATCH, SMOKE_PROMPT, SMOKE_STEPS, MODEL_TOL = 2, 48, 8, 5e-2
+# the smoke-size runs: tests/test_torch_zoo.py's shapes and tolerance
+SMOKE_BATCH, SMOKE_PROMPT, SMOKE_STEPS, SMOKE_FRAMES, MODEL_TOL = 2, 48, 8, 40, 5e-2
+# the zoo: the eight archs beyond the dense pair, at their smoke configs
+ZOO_ARCHS = ("qwen1.5-4b", "starcoder2-3b", "dbrx-132b", "arctic-480b", "jamba-v0.1-52b",
+             "xlstm-350m", "whisper-large-v3", "llava-next-mistral-7b")
+# jamba-v0.1-52b at its published widths, cut to one period of 8 of its 32
+# layers (7 mamba, 1 attention, 4 MoE, 4 MLP: ~27 GB of bf16 weights; all
+# 32 layers hold ~104 GB); the dense cell's prompts and generation
+JAMBA_LAYERS, JAMBA_BATCH, JAMBA_PROMPT, JAMBA_GEN = 8, 4, 2048, 64
+# whisper-large-v3 whole (32 encoder + 32 decoder layers): its 30-second
+# window of 1,500 frames after the conv stem, 4 prompts of 384 tokens and
+# 64 generated (448, its decoder's context)
+WHISPER_BATCH, WHISPER_FRAMES, WHISPER_PROMPT, WHISPER_GEN = 4, 1500, 384, 64
 # Full width, kernels against plain versions.  Through 36 bf16 layers a
 # rounding difference in an attention output is amplified: on an H100 the
 # plain prefill attention in f32 and in float64 give logits (std 1.0) that
@@ -1420,10 +1452,27 @@ ATTN_CASES = (
     (2, 4, 2, 48, 48, 20, True, None, 0), (1, 4, 2, 200, 333, 128, True, None, 133),
     (1, 2, 1, 100, 1000, 256, False, None, 0),
 )
-# flash_decode cases (B, H, KVH, Sk, D): the CPU tests' sweep and edges
+# flash_attention at the zoo's shapes (name, B, H, KVH, Sq, Sk, D, causal,
+# window), bf16 in the model's layout: whisper-large-v3's encoder over its
+# 1,500 frames (non-causal, D 64) and its cross-attention (384 queries over
+# 1,500 keys), starcoder2-3b's group of 12 with its 4,096 window over 8,192
+# keys (the band cuts), arctic-480b's group of 7
+ZOO_ATTN_CASES = (
+    ("whisper encoder", 4, 20, 20, 1500, 1500, 64, False, None),
+    ("whisper cross-attention", 4, 20, 20, 384, 1500, 64, False, None),
+    ("starcoder2 group 12, window 4096", 1, 24, 2, 8192, 8192, 128, True, 4096),
+    ("arctic group 7", 4, 56, 8, 2048, 2048, 128, True, None),
+)
+# flash_decode cases (B, H, KVH, Sk, D): the CPU tests' sweep and edges, and
+# the zoo's groups of 6 (dbrx-132b), 7 (arctic-480b) and 12 (starcoder2-3b's
+# 4,096-slot window cache)
 DECODE_CASES = ((3, 8, 2, 1024, 64), (2, 4, 4, 512, 128), (1, 16, 2, 2048, 64),
                 (2, 8, 2, 56, 16), (2, 8, 2, 100, 120), (3, 8, 2, 64, 64),
-                (2, 32, 8, 4096, 128), (1, 16, 1, 300, 256))
+                (2, 32, 8, 4096, 128), (1, 16, 1, 300, 256),
+                (4, 48, 8, 2112, 128), (4, 56, 8, 2112, 128), (4, 24, 2, 4096, 128))
+# whisper-large-v3's cross-attention decode: 1,500 encoder slots at D 64,
+# every row full
+XATTN_DECODE = (4, 20, 20, 1500, 64)
 
 
 def _randn(g, shape, dtype, dev):
@@ -1490,6 +1539,16 @@ def phase_flash_attention(dev):
         _attn_case(f"{str(dtype)[6:]} {(B, H, KVH, S, S, D)}, head dim strided", q, k, v,
                    dict(causal=True, window=None, q_offset=0), tol)
         checked += 2
+    for name, B, H, KVH, Sq, Sk, D, causal, window in ZOO_ATTN_CASES:
+        q = _randn(g, (B, Sq, H, D), torch.bfloat16, dev).transpose(1, 2)
+        k, v = (_randn(g, (B, Sk, KVH, D), torch.bfloat16, dev).transpose(1, 2)
+                for _ in range(2))
+        if any(plan(q, k, v).copy):
+            raise AssertionError(f"flash_attention {name}: the model's layout is copied")
+        _attn_case(f"{name} {(B, H, KVH, Sq, Sk, D)}", q, k, v,
+                   dict(causal=causal, window=window, q_offset=0), FLASH_TOL[torch.bfloat16])
+        checked += 1
+        del q, k, v
     # the main path's prefill shape, and the model's layout: q, k, v are
     # transposed views of [B, S, heads, D] projections
     cfg = get_config(DENSE_ARCH)
@@ -1590,34 +1649,48 @@ def _decode_edges(g, dev):
     return 4
 
 
+def _decode_case(g, dtype, tol, B, H, KVH, Sk, D, dev, full=False):
+    """One cache shape against the plain version: the partials at 2e-5, the
+    output at ``tol`` and bit-equal to `normalise` of the partials, an empty
+    row's partials, one launch a call.  kv_len is drawn, with its last row
+    full, its first empty and its second of one slot; ``full`` fills every
+    row."""
+    q, k, v, kv_len = _decode_inputs(g, B, H, KVH, Sk, D, dtype, dev)
+    kv_len[-1] = Sk
+    empty = B > 1 and not full
+    if full:
+        kv_len.fill_(Sk)
+    elif B > 1:
+        kv_len[0] = 0
+    if B > 2 and not full:
+        kv_len[1] = 1
+    what = f"flash_decode {dtype} {(B, H, KVH, Sk, D)} kv_len {kv_len.tolist()}"
+    before = flash_decode.launches
+    o, m, l = flash_decode(q, k, v, kv_len, return_lse=True)
+    out = flash_decode(q, k, v, kv_len)
+    po, pm, pl = flash_decode_plain(q, k, v, kv_len)
+    torch.cuda.synchronize()
+    for got, want in ((o, po), (m, pm), (l, pl)):
+        _check_close(got, want, 2e-5, what)
+    if empty and (not (m[0] == -1e30).all() or l[0].any() or o[0].any()):
+        raise AssertionError(f"{what}: an empty row's (m, l, o) is not (-1e30, 0, 0)")
+    _check_close(out, normalise(po, pl, dtype), tol, what)
+    if not torch.equal(out, normalise(o, l, dtype)):
+        raise AssertionError(f"{what}: the output is not `normalise` of the partials")
+    if flash_decode.launches != before + 2:
+        raise AssertionError(f"{what}: {flash_decode.launches - before} launches, 2 calls")
+
+
 def phase_flash_decode(dev):
     """flash_decode against its plain version; returns the kernel's row."""
     g = torch.Generator(device=dev).manual_seed(3)
     checked = 0
     for dtype, tol in FLASH_TOL.items():
         for B, H, KVH, Sk, D in DECODE_CASES:
-            q, k, v, kv_len = _decode_inputs(g, B, H, KVH, Sk, D, dtype, dev)
-            kv_len[-1] = Sk
-            if B > 1:
-                kv_len[0] = 0
-            if B > 2:
-                kv_len[1] = 1
-            what = f"flash_decode {dtype} {(B, H, KVH, Sk, D)} kv_len {kv_len.tolist()}"
-            before = flash_decode.launches
-            o, m, l = flash_decode(q, k, v, kv_len, return_lse=True)
-            out = flash_decode(q, k, v, kv_len)
-            po, pm, pl = flash_decode_plain(q, k, v, kv_len)
-            torch.cuda.synchronize()
-            for got, want in ((o, po), (m, pm), (l, pl)):
-                _check_close(got, want, 2e-5, what)
-            if B > 1 and (not (m[0] == -1e30).all() or l[0].any() or o[0].any()):
-                raise AssertionError(f"{what}: an empty row's (m, l, o) is not (-1e30, 0, 0)")
-            _check_close(out, normalise(po, pl, dtype), tol, what)
-            if not torch.equal(out, normalise(o, l, dtype)):
-                raise AssertionError(f"{what}: the output is not `normalise` of the partials")
-            if flash_decode.launches != before + 2:
-                raise AssertionError(f"{what}: {flash_decode.launches - before} launches, 2 calls")
+            _decode_case(g, dtype, tol, B, H, KVH, Sk, D, dev)
             checked += 1
+        _decode_case(g, dtype, tol, *XATTN_DECODE, dev, full=True)
+        checked += 1
     checked += _decode_edges(g, dev)
     # the main path's decode shape: the cache of 2,048 + 64 slots, all valid
     cfg = get_config(DENSE_ARCH)
@@ -1682,92 +1755,179 @@ def _runs_agree(a, b, tol, what):
     return err, int(clear.sum()), clear.numel()
 
 
-def phase_dense(dev, rows):
-    # (a) smoke size, card against CPU
-    for arch in ("qwen3-8b", "h2o-danube-3-4b"):
-        cfg = get_smoke_config(arch)
-        params = M.compute_params(M.init_params(torch.Generator().manual_seed(0), cfg))
-        tokens = prompts(cfg, SMOKE_BATCH, SMOKE_PROMPT, "cpu")
-        cpu = generate(params, cfg, tokens, SMOKE_STEPS + 1)
-        before = (flash_attention.launches, flash_decode.launches)
-        card = generate(_to(params, dev), cfg, tokens.to(dev), SMOKE_STEPS + 1,
-                        forced=cpu.tokens.to(dev))
-        launched = (flash_attention.launches - before[0], flash_decode.launches - before[1])
-        card.logits, card.tokens = card.logits.cpu(), card.tokens.cpu()
-        err, clear, n = _runs_agree(cpu, card, MODEL_TOL, f"smoke {arch} card vs CPU")
-        # how much of the allowance atol + rtol |logit| the worst logit uses
-        used = float(((card.logits - cpu.logits).abs()
-                      / (MODEL_TOL * (1 + cpu.logits.abs()))).max())
-        cache_err = max(_check_close(card.cache[s][x].cpu(), cpu.cache[s][x], MODEL_TOL,
-                                     f"smoke {arch} cache {s}/{x}")
-                        for s in cpu.cache for x in ("k", "v"))
-        if launched != (cfg.n_layers, cfg.n_layers * SMOKE_STEPS):
-            raise AssertionError(f"smoke {arch}: kernel launches {launched}")
-        print(f"[dense] smoke {arch}: card vs CPU, {SMOKE_BATCH} x {SMOKE_PROMPT} prompt tokens, "
-              f"{SMOKE_STEPS} teacher-forced steps: max |logit diff| {err} ({used:.4f} of the "
-              f"tolerance at the worst logit), cache {cache_err}, "
-              f"tokens equal at {clear} of {n} clear positions; launches {launched}")
+def _attn_counts(cfg):
+    """(flash_attention launches a prefill, flash_decode launches a decode
+    step): one a self- or cross-attention sublayer, one an encoder layer."""
+    per = sum(s.kind in ("attn", "xattn") for s in cfg.period) * cfg.n_periods
+    return per + cfg.encoder_layers, per
 
-    # (b) full width
-    cfg = get_config(DENSE_ARCH)
+
+def _serve_batch(cfg, B, S, dev, frames=None, seed=0):
+    """Prompts of S positions (a vision model's patch prefix among them,
+    as the serving CLI cuts them) and, for an enc-dec model, ``frames``
+    frame embeddings; patches and frames drawn in bf16 from ``seed``."""
+    batch = serve_batch(cfg, B, S, dev)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    if "patches" in batch:
+        batch["patches"] = _randn(g, tuple(batch["patches"].shape), torch.bfloat16, dev)
+    if "frames" in batch:
+        batch["frames"] = _randn(g, (B, frames or S, cfg.d_model), torch.bfloat16, dev)
+    return batch
+
+
+def _dequantized(cache):
+    """A cache tree with int8 entries replaced by the values they stand for."""
+    out = {}
+    for sub, c in cache.items():
+        out[sub] = {k: (kv_dequantize(v, c[f"{k}_scale"]) if v.dtype == torch.int8 else v)
+                    for k, v in c.items()}
+    return out
+
+
+def _smoke_card_vs_cpu(cfg, dev, tag):
+    """A smoke config on the card against the same run on the CPU (which
+    the CPU tests hold to the JAX model), teacher-forced (tokens and MoE
+    choices, `Routes`): logits, tokens,
+    caches and states within MODEL_TOL, and the kernels launched once an
+    attention sublayer (and encoder layer) in prefill and once an attention
+    sublayer a decode step."""
+    params = M.compute_params(M.init_params(torch.Generator().manual_seed(0), cfg))
+    batch = _serve_batch(cfg, SMOKE_BATCH, SMOKE_PROMPT, "cpu", frames=SMOKE_FRAMES)
+    routes = Routes()
+    cpu = generate(params, cfg, batch, SMOKE_STEPS + 1, routes=routes)
+    before = (flash_attention.launches, flash_decode.launches)
+    card = generate(_to(params, dev), cfg, _to(batch, dev), SMOKE_STEPS + 1,
+                    forced=cpu.tokens.to(dev), routes=routes.replay())
+    launched = (flash_attention.launches - before[0], flash_decode.launches - before[1])
+    card.logits, card.tokens = card.logits.cpu(), card.tokens.cpu()
+    err, clear, n = _runs_agree(cpu, card, MODEL_TOL, f"smoke {cfg.name} card vs CPU")
+    # how much of the allowance atol + rtol |logit| the worst logit uses
+    used = float(((card.logits - cpu.logits).abs()
+                  / (MODEL_TOL * (1 + cpu.logits.abs()))).max())
+    want_cache, got_cache = _dequantized(cpu.cache), _dequantized(_to(card.cache, "cpu"))
+    cache_err = max(_check_close(got_cache[s][x], want_cache[s][x], MODEL_TOL,
+                                 f"smoke {cfg.name} cache {s}/{x}")
+                    for s in want_cache for x in want_cache[s])
+    prefill_per, step_per = _attn_counts(cfg)
+    if launched != (prefill_per, step_per * SMOKE_STEPS):
+        raise AssertionError(f"smoke {cfg.name}: kernel launches {launched}, expected "
+                             f"{(prefill_per, step_per * SMOKE_STEPS)}")
+    print(f"[{tag}] smoke {cfg.name}{' kv_quant' if cfg.kv_quant else ''}: card vs CPU, "
+          f"{SMOKE_BATCH} x {SMOKE_PROMPT} prompt positions, {SMOKE_STEPS} teacher-forced steps: "
+          f"max |logit diff| {err} ({used:.4f} of the tolerance at the worst logit), caches and "
+          f"states {cache_err}, tokens equal at {clear} of {n} clear positions; MoE choices "
+          f"replayed, {int(routes.flips)} of {routes.choices} would have gone otherwise; "
+          f"launches {launched}")
+
+
+def _full_width(cfg, batch, gen, tag):
+    """One serving run at full width through the kernels, then the same run
+    with their plain versions, teacher-forced: fed the first run's tokens,
+    and its MoE choices (`Routes`: a near-tie between two experts' gates
+    flips with the last bit of the hidden state).  Returns the kernels' launches
+    in the first run, which must be one an attention sublayer (and encoder
+    layer) in prefill and one an attention sublayer a decode step, without
+    an aligning copy; the two runs must agree as closely as bf16 rounding
+    allows (`FULL_RMS_TOL`, `FULL_MAX_TOL`, tokens equal where the margin
+    exceeds twice the largest difference)."""
+    dev = batch["tokens"].device
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     master = M.init_params(torch.Generator(device=dev).manual_seed(0), cfg)
     params = M.compute_params(master)
     torch.cuda.synchronize()
     n_params = sum(t.numel() for t in _leaves(master))
-    print(f"[dense] {cfg.name}: {n_params} f32 parameters drawn on the card in "
+    print(f"[{tag}] {cfg.name}: {n_params} {cfg.param_dtype} parameters drawn on the card in "
           f"{time.perf_counter() - t0:.3f} s, plus bf16 compute copies; "
           f"{torch.cuda.memory_allocated()} B allocated")
-    tokens = prompts(cfg, DENSE_BATCH, DENSE_PROMPT, dev)
+    del master
+    B, S = batch["tokens"].shape[0], batch["tokens"].shape[1]
     torch.cuda.reset_peak_memory_stats()
     flash_attention.launches = 0
     flash_attention.copies = 0
     flash_decode.launches = 0
     flash_decode.copies = 0
-    run = generate(params, cfg, tokens, DENSE_GEN)
+    routes = Routes()
+    run = generate(params, cfg, batch, gen, routes=routes)
     launches = (flash_attention.launches, flash_decode.launches)
-    copies = flash_attention.copies
-    decode_copies = flash_decode.copies
+    copies = (flash_attention.copies, flash_decode.copies)
     peak = torch.cuda.max_memory_allocated()
-    steps = DENSE_GEN - 1
-    want = (cfg.n_layers, cfg.n_layers * steps)
+    steps = gen - 1
+    prefill_per, step_per = _attn_counts(cfg)
+    want = (prefill_per, step_per * steps)
     if launches != want:
-        raise AssertionError(f"full width: launches {launches}, expected {want}")
-    if copies != 0 or decode_copies != 0:
-        raise AssertionError(f"full width: flash_attention copied {copies} operands, "
-                             f"flash_decode {decode_copies}")
-    rows["flash_attention"]["launches"], rows["flash_decode"]["launches"] = launches
+        raise AssertionError(f"{cfg.name} full width: launches {launches}, expected {want}")
+    if copies != (0, 0):
+        raise AssertionError(f"{cfg.name} full width: aligning copies {copies}")
     if not bool(torch.isfinite(run.logits).all()):
-        raise AssertionError("full width: non-finite logits")
-    if run.tokens.shape != (DENSE_BATCH, DENSE_GEN) or run.tokens.dtype != torch.int32:
-        raise AssertionError(f"full width: tokens {tuple(run.tokens.shape)} {run.tokens.dtype}")
-    print(f"[dense] {cfg.name} full width ({cfg.n_layers} layers, d_model {cfg.d_model}), "
-          f"batch {DENSE_BATCH}, prompt {DENSE_PROMPT}, {DENSE_GEN} tokens: prefill "
-          f"{run.prefill_s * 1e3:.3f} ms ({DENSE_BATCH * DENSE_PROMPT / run.prefill_s:.1f} tok/s), "
-          f"decode {run.decode_s * 1e3 / steps:.4f} ms per step "
-          f"({DENSE_BATCH * steps / run.decode_s:.1f} tok/s), peak memory {peak} B; "
-          f"launches flash_attention {launches[0]} ({copies} aligning copies), flash_decode "
-          f"{launches[1]} ({decode_copies} copies)")
-    print(f"[dense] first generated tokens: {run.tokens[:, :8].tolist()}")
+        raise AssertionError(f"{cfg.name} full width: non-finite logits")
+    if run.tokens.shape != (B, gen) or run.tokens.dtype != torch.int32:
+        raise AssertionError(f"{cfg.name} full width: tokens {tuple(run.tokens.shape)} "
+                             f"{run.tokens.dtype}")
+    inputs = ", ".join(f"{k} {list(v.shape)}" for k, v in batch.items())
+    print(f"[{tag}] {cfg.name} full width ({cfg.n_layers} layers"
+          f"{f' + {cfg.encoder_layers} encoder layers' if cfg.encoder_layers else ''}, d_model "
+          f"{cfg.d_model}), {inputs}, {gen} tokens: prefill {run.prefill_s * 1e3:.3f} ms "
+          f"({B * S / run.prefill_s:.1f} tok/s), decode {run.decode_s * 1e3 / steps:.4f} ms per "
+          f"step ({B * steps / run.decode_s:.1f} tok/s), peak memory {peak} B; launches "
+          f"flash_attention {launches[0]}, flash_decode {launches[1]} (copies {copies})")
+    print(f"[{tag}] {cfg.name} first generated tokens: {run.tokens[:, :8].tolist()}")
     run.cache = None
-    plain = generate(params, cfg, tokens, DENSE_GEN, plain=True, forced=run.tokens)
+    plain = generate(params, cfg, batch, gen, plain=True, forced=run.tokens,
+                     routes=routes.replay())
     diff = plain.logits - run.logits
     err = float(diff.abs().max())
     rel_rms = float(diff.pow(2).mean().sqrt() / plain.logits.pow(2).mean().sqrt())
     clear = _margin_clear(plain.logits, err)
     same = bool(torch.equal(run.tokens[clear], plain.tokens[clear]))
     steps_err = diff.abs().amax(dim=(1, 2)).tolist()
-    print(f"[dense] full width with the plain versions, teacher-forced: prefill "
+    print(f"[{tag}] {cfg.name} full width with the plain versions, teacher-forced: prefill "
           f"{plain.prefill_s * 1e3:.3f} ms, decode {plain.decode_s * 1e3 / steps:.4f} ms per step; "
           f"logit diff: max {err} (first step {steps_err[0]}, last {steps_err[-1]}), rms "
           f"{rel_rms} of the logits' rms (logit std {float(plain.logits.std())}); tokens equal at "
           f"{int(clear.sum())} of {clear.numel()} positions whose margin exceeds {2 * err}: {same}; "
-          f"equal overall at {float((run.tokens == plain.tokens).float().mean())}")
+          f"equal overall at {float((run.tokens == plain.tokens).float().mean())}; MoE choices "
+          f"replayed: {int(routes.flips)} of {routes.choices} would have gone otherwise")
     if rel_rms > FULL_RMS_TOL or err > FULL_MAX_TOL or not same:
-        raise AssertionError(f"full width: the kernels' run and the plain run disagree (rms "
-                             f"{rel_rms} > {FULL_RMS_TOL}, max {err} > {FULL_MAX_TOL}, or "
+        raise AssertionError(f"{cfg.name} full width: the kernels' run and the plain run disagree "
+                             f"(rms {rel_rms} > {FULL_RMS_TOL}, max {err} > {FULL_MAX_TOL}, or "
                              f"tokens differ where the margin exceeds {2 * err})")
+    return launches
+
+
+def phase_dense(dev, rows):
+    # (a) smoke size, card against CPU
+    for arch in ("qwen3-8b", "h2o-danube-3-4b"):
+        _smoke_card_vs_cpu(get_smoke_config(arch), dev, "dense")
+    # (b) full width
+    cfg = get_config(DENSE_ARCH)
+    launches = _full_width(cfg, _serve_batch(cfg, DENSE_BATCH, DENSE_PROMPT, dev), DENSE_GEN,
+                           "dense")
+    rows["flash_attention"]["launches"], rows["flash_decode"]["launches"] = launches
+
+
+def phase_zoo(dev, rows):
+    """The rest of the model zoo: (a) every other arch's smoke config and
+    qwen3-8b's with the int8 KV cache, card against CPU; (b) jamba at its
+    published widths, one period of 8 layers; (c) whisper-large-v3 whole."""
+    t0 = time.perf_counter()
+    for arch in ZOO_ARCHS:
+        _smoke_card_vs_cpu(get_smoke_config(arch), dev, "zoo")
+    _smoke_card_vs_cpu(dataclasses.replace(get_smoke_config(DENSE_ARCH), kv_quant=True), dev,
+                       "zoo")
+    torch.cuda.empty_cache()
+    cfg = dataclasses.replace(get_config("jamba-v0.1-52b"), n_layers=JAMBA_LAYERS)
+    launches = _full_width(cfg, _serve_batch(cfg, JAMBA_BATCH, JAMBA_PROMPT, dev), JAMBA_GEN,
+                           "zoo")
+    for row, n in zip(("flash_attention", "flash_decode"), launches):
+        rows[row]["launches"] += n
+    torch.cuda.empty_cache()
+    cfg = get_config("whisper-large-v3")
+    batch = _serve_batch(cfg, WHISPER_BATCH, WHISPER_PROMPT, dev, frames=WHISPER_FRAMES)
+    launches = _full_width(cfg, batch, WHISPER_GEN, "zoo")
+    for row, n in zip(("flash_attention", "flash_decode"), launches):
+        rows[row]["launches"] += n
+    print(f"[zoo] phase ran {time.perf_counter() - t0:.1f} s")
 
 
 def _leaves(tree):
@@ -1785,7 +1945,7 @@ def main() -> int:
     dev = torch.device("cuda")
     card = card_line()
     print(f"[card] {card}")
-    t0 = time.time()
+    t0 = t_start = time.time()
     logs = build.build_all()
     for name, log in logs.items():
         print(f"[build] {name}: {log.strip()}")
@@ -1810,9 +1970,12 @@ def main() -> int:
     phase_coded(dev, rows, message)
     phase_router(dev, rows)
     phase_dense(dev, rows)
+    torch.cuda.empty_cache()
+    phase_zoo(dev, rows)
     for row in rows.values():
         if not all(math.isfinite(row[k]) for k in ("ms", "plain_ms", "bound_ms")):
             raise AssertionError(f"non-finite timing in {row}")
+    print(f"[total] chip_smoke.py ran {time.time() - t_start:.1f} s")
     print(card)
     print(json.dumps({"kernels": list(rows.values())}))
     print(json.dumps({"ok": True, "device": {

@@ -54,12 +54,12 @@ def _sdpa(q, k, v, *, causal=True, window=None, scale=None, q_offset=0):
     return F.scaled_dot_product_attention(q, k, v, is_causal=True, enable_gqa=True)
 
 
-def _forced(params, cfg, tokens, forced, prefill_attention):
+def _forced(params, cfg, batch, forced, prefill_attention):
     """A teacher-forced plain run whose prefill attention is ``prefill_attention``."""
     plain = layers.flash_attention_plain
     layers.flash_attention_plain = prefill_attention
     try:
-        run = cs.generate(params, cfg, tokens, cs.DENSE_GEN, plain=True, forced=forced)
+        run = cs.generate(params, cfg, batch, cs.DENSE_GEN, plain=True, forced=forced)
     finally:
         layers.flash_attention_plain = plain
     run.cache = None
@@ -84,14 +84,14 @@ def main() -> int:
     cfg = cs.get_config(cs.DENSE_ARCH)
     params = cs.M.compute_params(cs.M.init_params(torch.Generator(device=dev).manual_seed(0),
                                                   cfg))
-    tokens = cs.prompts(cfg, cs.DENSE_BATCH, cs.DENSE_PROMPT, dev)
-    kernels = cs.generate(params, cfg, tokens, cs.DENSE_GEN)
+    batch = cs.serve_batch(cfg, cs.DENSE_BATCH, cs.DENSE_PROMPT, dev)
+    kernels = cs.generate(params, cfg, batch, cs.DENSE_GEN)
     kernels.cache = None
     print(f"logits over {cs.DENSE_GEN} steps: std {float(kernels.logits.std())}, max |logit| "
           f"{float(kernels.logits.abs().max())}")
-    runs = {"plain f32": _forced(params, cfg, tokens, kernels.tokens, cs.flash_attention_plain),
-            "plain f64": _forced(params, cfg, tokens, kernels.tokens, _f64_attention),
-            "sdpa": _forced(params, cfg, tokens, kernels.tokens, _sdpa)}
+    runs = {"plain f32": _forced(params, cfg, batch, kernels.tokens, cs.flash_attention_plain),
+            "plain f64": _forced(params, cfg, batch, kernels.tokens, _f64_attention),
+            "sdpa": _forced(params, cfg, batch, kernels.tokens, _sdpa)}
     for name, run in runs.items():
         _compare(f"kernels vs {name}", kernels, run)
     _compare("sdpa vs plain f32", runs["sdpa"], runs["plain f32"])

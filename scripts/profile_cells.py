@@ -1,7 +1,7 @@
-"""Where the time goes in the coded, router, dense, fat-tree, job and cluster cells, on one NVIDIA card.
+"""Where the time goes in the coded, router, dense, zoo, fat-tree, job and cluster cells, on one NVIDIA card.
 
     python3 scripts/profile_cells.py \
-        --cell coded|router|prefill|decode|fattree|job|cluster [--steps N]
+        --cell coded|router|prefill|decode|jamba|whisper|fattree|job|cluster [--steps N]
 
 Runs one cell of `chip_smoke.py` under `torch.profiler` and prints the
 wall time per step, the card's busy and idle shares, the device
@@ -10,7 +10,10 @@ is one full-width message encoded on the card from host memory and
 peel-decoded on the host (`coded`, default 2), one router window of
 `simulate_window` + `report` (`router`, default 50), one full-width
 qwen3-8b prefill of 4 x 2,048 tokens (`prefill`, default 3), one
-decode step of those 4 sequences after it (`decode`, default 20), or one
+decode step of those 4 sequences after it (`decode`, default 20), one
+decode step of the zoo cell's jamba (8 of its 32 layers, after its 4 x
+2,048-token prefill) or whisper-large-v3 (after its 1,500 frames and 4 x
+384 tokens) (`jamba`, `whisper`, default 20), or one
 tick of WAM on the full-width fat-tree family's `inter_pod_uniform`
 scenario with the family's telemetry (`fattree`, default 64: one run of
 that many ticks, early exit off).  The job and cluster cells report per
@@ -23,6 +26,7 @@ wide cell has its own tool, `tools/torch_profile_wide.py`.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import os
 import sys
 import time
@@ -38,9 +42,9 @@ from torch.profiler import ProfilerActivity, profile  # noqa: E402
 from repro_torch.train.step import build_decode_step, build_prefill_step  # noqa: E402
 
 UNIT = {"coded": "message", "router": "window", "prefill": "prefill", "decode": "step",
-        "fattree": "tick", "job": "tick", "cluster": "tick"}
-STEPS = {"coded": 2, "router": 50, "prefill": 3, "decode": 20, "fattree": 64, "job": 3,
-         "cluster": 3}
+        "jamba": "step", "whisper": "step", "fattree": "tick", "job": "tick", "cluster": "tick"}
+STEPS = {"coded": 2, "router": 50, "prefill": 3, "decode": 20, "jamba": 20, "whisper": 20,
+         "fattree": 64, "job": 3, "cluster": 3}
 
 
 def _device_us(evt) -> float:
@@ -51,18 +55,28 @@ def _device_us(evt) -> float:
     return 0.0
 
 
-def _dense_step(cell: str, dev):
-    """A full-width prefill, or a decode step after one (bf16 weights only)."""
-    cfg = cs.get_config(cs.DENSE_ARCH)
+def _serve_step(cell: str, dev):
+    """A full-width prefill, or a decode step after one (bf16 weights only):
+    the dense cell's qwen3-8b, or the zoo cell's jamba or whisper."""
+    if cell == "jamba":
+        cfg = dataclasses.replace(cs.get_config("jamba-v0.1-52b"), n_layers=cs.JAMBA_LAYERS)
+        batch, gen = cs._serve_batch(cfg, cs.JAMBA_BATCH, cs.JAMBA_PROMPT, dev), cs.JAMBA_GEN
+    elif cell == "whisper":
+        cfg = cs.get_config("whisper-large-v3")
+        batch = cs._serve_batch(cfg, cs.WHISPER_BATCH, cs.WHISPER_PROMPT, dev,
+                                frames=cs.WHISPER_FRAMES)
+        gen = cs.WHISPER_GEN
+    else:
+        cfg = cs.get_config(cs.DENSE_ARCH)
+        batch, gen = cs._serve_batch(cfg, cs.DENSE_BATCH, cs.DENSE_PROMPT, dev), cs.DENSE_GEN
     params = cs.M.compute_params(cs.M.init_params(torch.Generator(device=dev).manual_seed(0),
                                                   cfg))
-    B, S = cs.DENSE_BATCH, cs.DENSE_PROMPT
-    tokens = cs.prompts(cfg, B, S, dev)
-    cache = cs.M.make_cache(cfg, B, S + cs.DENSE_GEN, device=dev)
+    B, S = batch["tokens"].shape
+    cache = cs.M.make_cache(cfg, B, S + gen, device=dev)
     prefill = build_prefill_step(cfg)
     if cell == "prefill":
-        return lambda: prefill(params, {"tokens": tokens}, cache)
-    tok, cache, _ = prefill(params, {"tokens": tokens}, cache)
+        return lambda: prefill(params, batch, cache)
+    tok, cache, _ = prefill(params, batch, cache)
     decode = build_decode_step(cfg)
     pos = torch.full((B,), S, dtype=torch.int32, device=dev)
     return lambda: decode(params, tok[:, None], pos, cache)  # the same slot each step
@@ -123,8 +137,8 @@ def _step(cell: str, dev, steps: int):
         return _fat_tree_run(steps, dev)
     if cell in ("job", "cluster"):
         return _ring_step(cell, dev)
-    if cell in ("prefill", "decode"):
-        return _dense_step(cell, dev)
+    if cell in ("prefill", "decode", "jamba", "whisper"):
+        return _serve_step(cell, dev)
     if cell == "coded":
         payload, neigh, valid = cs.coded_message()
 
@@ -142,8 +156,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--cell", choices=tuple(UNIT), required=True)
     ap.add_argument("--steps", type=int, default=None,
-                    help="steps to profile (default: coded 2, router 50, prefill 3, fattree 64, "
-                    "decode 20, job 3, cluster 3)")
+                    help="steps to profile (default: coded 2, router 50, prefill 3, fattree 64, jamba 20, "
+                    "whisper 20, decode 20, job 3, cluster 3)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("profile_cells: no CUDA device", file=sys.stderr)

@@ -90,12 +90,14 @@ def _tree(tree, device):
 
 def model_params(tree: Mapping, device=None) -> dict:
     """The reference's model parameter tree (``init_params``; nested dicts
-    of numpy arrays, period leaves stacked on a leading axis) as the port's
-    tree of tensors, leaf for leaf and in the same dtypes."""
+    of numpy arrays, period leaves stacked on a leading axis; the encoder,
+    the projector, MoE routers and experts included) as the port's tree of
+    tensors, leaf for leaf and in the same dtypes."""
     return _tree(tree, device)
 
 
 def model_cache(tree: Mapping, device=None) -> dict:
     """The reference's decode cache tree (``make_cache`` / ``prefill``) as
-    the port's, leaf for leaf (bf16 KV entries keep their bits)."""
+    the port's, leaf for leaf: bf16 KV entries keep their bits, int8 ones
+    their f32 scales; Mamba, mLSTM and sLSTM states in their dtypes."""
     return _tree(tree, device)

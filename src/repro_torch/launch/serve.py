@@ -2,14 +2,16 @@
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-8b \\
         --batch 4 --prompt-len 2048 --gen 64
-    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-8b --smoke \\
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch whisper-large-v3 --smoke \\
         --device cpu
 
-The port of the JAX package's `launch/serve.py`: the same flow and
-printout (prefill and decode times and tokens/s, the first generated
-tokens), on the card unless ``--device cpu``.  Weights are random, drawn
-from a seeded `torch.Generator` on the device; prompts come from
-``np.random.default_rng(0)``.
+The port of the JAX package's `launch/serve.py`, for every arch id: the
+same flow and printout (prefill and decode times and tokens/s, the first
+generated tokens), on the card unless ``--device cpu``.  Weights are
+random, drawn from a seeded `torch.Generator` on the device; prompts come
+from ``np.random.default_rng(0)``; a vision model's patch prefix and an
+enc-dec model's frames are zeros, as the reference's CLI builds them
+(`serve_batch`).
 """
 from __future__ import annotations
 
@@ -24,9 +26,10 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.configs.registry import get_config, get_smoke_config
 from repro_torch.device import resolve_device
 from repro_torch.models import model as M
+from repro_torch.models.layers import COMPUTE_DTYPE
 from repro_torch.train.step import build_decode_step, build_prefill_step
 
-__all__ = ["Generation", "prompts", "generate", "main"]
+__all__ = ["Generation", "prompts", "serve_batch", "generate", "main"]
 
 
 @dataclasses.dataclass
@@ -45,26 +48,50 @@ def prompts(cfg: ArchConfig, batch: int, prompt_len: int, device) -> torch.Tenso
                            dtype=torch.int32, device=device)
 
 
+def serve_batch(cfg: ArchConfig, batch: int, prompt_len: int, device) -> dict:
+    """The reference CLI's prefill batch of ``prompt_len`` positions: the
+    prompts; for a vision model the tokens cut to ``prompt_len - s_img``
+    behind ``s_img = min(prefix_tokens, prompt_len // 2)`` zero patches;
+    for an enc-dec model zero frames ``[batch, prompt_len, d_model]`` (the
+    CLI ties their length to the prompt's; the model does not)."""
+    tokens = prompts(cfg, batch, prompt_len, device)
+    out = {"tokens": tokens}
+    zeros = dict(dtype=COMPUTE_DTYPE, device=tokens.device)
+    if cfg.frontend == "vision_patches":
+        s_img = min(cfg.prefix_tokens, prompt_len // 2)
+        out = {"tokens": tokens[:, :prompt_len - s_img],
+               "patches": torch.zeros((batch, s_img, cfg.d_model), **zeros)}
+    if cfg.is_encdec:
+        out["frames"] = torch.zeros((batch, prompt_len, cfg.d_model), **zeros)
+    return out
+
+
 def _sync(device: torch.device) -> None:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
 
 
-def generate(params: dict, cfg: ArchConfig, tokens: torch.Tensor, gen: int, *,
-             plain: bool = False, forced: torch.Tensor | None = None) -> Generation:
-    """Prefill ``tokens`` [B, S], then decode ``gen - 1`` greedy tokens.
+def generate(params: dict, cfg: ArchConfig, batch, gen: int, *,
+             plain: bool = False, forced: torch.Tensor | None = None,
+             routes=None) -> Generation:
+    """Prefill ``batch``, then decode ``gen - 1`` greedy tokens.
 
-    With ``forced`` [B, gen], step g is fed ``forced[:, g]`` instead of its
-    own greedy token (teacher forcing: two runs then see the same inputs).
-    ``plain=True`` runs the attention kernels' plain versions."""
-    dev = tokens.device
-    B, S = tokens.shape
-    prefill = build_prefill_step(cfg, plain=plain)
-    decode = build_decode_step(cfg, plain=plain)
+    ``batch`` holds the prompts ``tokens`` [B, S] and the frontend's inputs
+    (``patches`` [B, P, D], a prefix of P positions; ``frames`` [B, S_enc,
+    D]), as `serve_batch` builds them.  With ``forced`` [B, gen], step g is fed
+    ``forced[:, g]`` instead of its own greedy token (teacher forcing: two
+    runs then see the same inputs), and with ``routes`` (`moe.Routes`) the
+    MoE choices are recorded or replayed likewise.  ``plain=True`` runs the
+    attention kernels' plain versions."""
+    dev = batch["tokens"].device
+    B = batch["tokens"].shape[0]
+    S = batch["tokens"].shape[1] + (batch["patches"].shape[1] if "patches" in batch else 0)
+    prefill = build_prefill_step(cfg, plain=plain, routes=routes)
+    decode = build_decode_step(cfg, plain=plain, routes=routes)
     cache = M.make_cache(cfg, B, S + gen, device=dev)
     _sync(dev)
     t0 = time.perf_counter()
-    tok, cache, logits = prefill(params, {"tokens": tokens}, cache)
+    tok, cache, logits = prefill(params, batch, cache)
     _sync(dev)
     t_prefill = time.perf_counter() - t0
     out, kept = [tok], [logits]
@@ -98,7 +125,7 @@ def main(argv=None) -> None:
     B, S, G = args.batch, args.prompt_len, args.gen
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
-    run = generate(params, cfg, prompts(cfg, B, S, dev), G)
+    run = generate(params, cfg, serve_batch(cfg, B, S, dev), G)
     gen = run.tokens.cpu().numpy()
     print(f"arch={cfg.name} batch={B} prompt={S} gen={G} device={dev}")
     print(f"prefill: {run.prefill_s * 1e3:.1f} ms ({B * S / run.prefill_s:.0f} tok/s)")

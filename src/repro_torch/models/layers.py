@@ -14,8 +14,13 @@ The port of the JAX package's `models/layers.py`, with its conventions:
   kernels to them).
 
 The reference's sharding annotations are no-ops outside a mesh and have no
-counterpart here.  `kv_quantize` / `kv_dequantize` are not ported: no
-ported config sets ``kv_quant``.
+counterpart here.  With ``kv_quant`` the KV caches hold int8 entries and
+f32 scales (`kv_quantize`); a decode step dequantizes the whole cache to
+bf16 and runs `flash_decode` over it, as the reference does.
+
+bf16 elementwise activations follow the reference's compiled rounding on
+the CPU: XLA rounds every op of `jax.nn.silu` and `jax.nn.gelu` to bf16,
+and gelu's constants too (measured op by op against the jitted reference).
 """
 from __future__ import annotations
 
@@ -35,8 +40,15 @@ __all__ = [
     "init_attention",
     "attention",
     "attention_decode",
+    "cross_attention_decode",
     "init_mlp",
     "mlp",
+    "matmul",
+    "gelu",
+    "sigmoid",
+    "silu",
+    "kv_quantize",
+    "kv_dequantize",
 ]
 
 COMPUTE_DTYPE = torch.bfloat16
@@ -46,8 +58,63 @@ def _cast(x: torch.Tensor) -> torch.Tensor:
     return x.to(COMPUTE_DTYPE)
 
 
+def matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` (batched too) of bf16 operands, a bf16 result.  On the CPU
+    the product is taken in f32 and rounded once, as the reference's
+    compiled CPU program computes a bf16 dot (torch's bf16 CPU kernels
+    round an occasional sum to the other neighbour); on the card the bf16
+    tensor-core product, which accumulates in f32 too."""
+    if a.device.type == "cpu":
+        return (a.float() @ b.float()).to(a.dtype)
+    return a @ b
+
+
 def _normal(shape, generator, std: float, dtype, device) -> torch.Tensor:
     return torch.randn(shape, generator=generator, dtype=dtype, device=device).mul_(std)
+
+
+def sigmoid(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.sigmoid`` on bf16 as the reference's compiled program rounds
+    it: ``1 / (1 + exp(-x))``, every op rounded to bf16."""
+    return 1.0 / (1.0 + torch.exp(-x))
+
+
+def silu(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.silu`` on bf16 as the reference's compiled program rounds
+    it: ``x * sigmoid(x)``, every op rounded to bf16."""
+    return x * sigmoid(x)
+
+
+# jax.nn.gelu's constants as XLA folds them into a bf16 program
+_GELU_CUBIC = float(torch.tensor(0.044715).to(COMPUTE_DTYPE))
+_GELU_SCALE = float(torch.tensor(np.sqrt(2 / np.pi)).to(COMPUTE_DTYPE))
+
+
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.gelu`` (its default tanh approximation) on bf16 as the
+    reference's compiled program rounds it: ``x * (0.5 * (1 + tanh(c * (x +
+    k * x**3))))`` with bf16 constants c, k and every op rounded to bf16
+    (bit for bit on every bf16 value but denormals, which XLA flushes)."""
+    inner = x + (x * x * x) * _GELU_CUBIC
+    return x * ((torch.tanh(inner * _GELU_SCALE) + 1.0) * 0.5)
+
+
+_INV_127 = float(np.float32(1.0 / 127.0))
+
+
+def kv_quantize(x: torch.Tensor):
+    """Symmetric int8 per-(token, head) quantization of a KV entry:
+    ``x [..., D] -> (q int8[..., D], scale f32[...])``.  ``torch.round``
+    rounds half to even, as ``jnp.round`` does; the scale is the max times
+    f32(1 / 127), as XLA folds the reference's division by 127."""
+    xf = x.float()
+    scale = torch.clamp(xf.abs().amax(dim=-1) * _INV_127, min=1e-8)
+    q = torch.clamp(torch.round(xf / scale[..., None]), -127, 127).to(torch.int8)
+    return q, scale
+
+
+def kv_dequantize(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    return (q.float() * scale[..., None]).to(COMPUTE_DTYPE)
 
 
 def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float) -> torch.Tensor:
@@ -108,41 +175,68 @@ def init_attention(generator: torch.Generator, cfg: ArchConfig, device,
 def _project(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """``einsum("bsd,dhk->bshk")`` as one matrix product."""
     d, h, k = w.shape
-    return (x @ _cast(w).reshape(d, h * k)).unflatten(-1, (h, k))
+    return matmul(x, _cast(w).reshape(d, h * k)).unflatten(-1, (h, k))
 
 
-def _qkv(p: dict, cfg: ArchConfig, x: torch.Tensor, positions: torch.Tensor):
+def _query(p: dict, cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
+    """The query projection alone, before qk-norm and RoPE (cross-attention
+    decode takes it so)."""
     q = _project(x, p["wq"])
-    k = _project(x, p["wk"])
-    v = _project(x, p["wv"])
-    if cfg.qkv_bias:
-        q = q + _cast(p["bq"])
-        k = k + _cast(p["bk"])
-        v = v + _cast(p["bv"])
+    return q + _cast(p["bq"]) if cfg.qkv_bias else q
+
+
+def _qkv(p: dict, cfg: ArchConfig, x: torch.Tensor, positions: torch.Tensor, *,
+         rotary: bool = True, with_kv: bool = True):
+    """q, k, v ``[B, S, heads, Dh]``; with ``with_kv=False`` k and v are
+    None (cross-attention reads the encoder's)."""
+    q = _query(p, cfg, x)
+    k = v = None
+    if with_kv:
+        k = _project(x, p["wk"])
+        v = _project(x, p["wv"])
+        if cfg.qkv_bias:
+            k = k + _cast(p["bk"])
+            v = v + _cast(p["bv"])
     if cfg.qk_norm:
         q = rms_norm(q, p["q_norm"], cfg.norm_eps)
-        k = rms_norm(k, p["k_norm"], cfg.norm_eps)
-    q = rope(q, positions, cfg.rope_theta)
-    k = rope(k, positions, cfg.rope_theta)
+        k = None if k is None else rms_norm(k, p["k_norm"], cfg.norm_eps)
+    if rotary:
+        q = rope(q, positions, cfg.rope_theta)
+        k = None if k is None else rope(k, positions, cfg.rope_theta)
     return q, k, v
 
 
 def _out(out: torch.Tensor, wo: torch.Tensor) -> torch.Tensor:
     """``einsum("...hk,hkd->...d")`` as one matrix product."""
     h, k, d = wo.shape
-    return out.flatten(-2) @ _cast(wo).reshape(h * k, d)
+    return matmul(out.flatten(-2), _cast(wo).reshape(h * k, d))
 
 
 def attention(p: dict, cfg: ArchConfig, x: torch.Tensor, positions: torch.Tensor, *,
-              plain: bool = False):
-    """Full-sequence causal self-attention (prefill).  x: [B, S, D]; returns
+              causal: bool = True, rotary: bool = True, kv=None, plain: bool = False):
+    """Full-sequence attention (prefill, the encoder).  x: [B, S, D]; returns
     ``(y [B, S, D], k, v)`` with k, v ``[B, S, KVH, Dh]`` for the cache (the
-    reference computes them a second time; the result is the same)."""
-    q, k, v = _qkv(p, cfg, x, positions)
+    reference computes them a second time; the result is the same).  With
+    ``kv = (k, v)`` it is cross-attention over those keys and values
+    (``[B, S_kv, KVH, Dh]``), never causal, and only q is projected."""
+    q, k, v = _qkv(p, cfg, x, positions, rotary=rotary, with_kv=kv is None)
+    if kv is not None:
+        k, v = kv
+        causal = False
     attend = flash_attention_plain if plain else flash_attention
     out = attend(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-                 causal=True, window=cfg.window).transpose(1, 2)  # [B, S, H, Dh]
+                 causal=causal, window=cfg.window).transpose(1, 2)  # [B, S, H, Dh]
     return _out(out, p["wo"]), k, v
+
+
+def _decode_attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, kv_len: torch.Tensor, *,
+                   plain: bool) -> torch.Tensor:
+    """q [B, H, Dh] over the cache k, v [B, L, KVH, Dh]: `flash_decode`, or
+    its plain version normalised as the wrapper does."""
+    if plain:
+        o, _, l = flash_decode_plain(q, k, v, kv_len)
+        return normalise(o, l, q.dtype)
+    return flash_decode(q, k, v, kv_len)
 
 
 def attention_decode(p: dict, cfg: ArchConfig, x: torch.Tensor, pos: torch.Tensor,
@@ -150,48 +244,65 @@ def attention_decode(p: dict, cfg: ArchConfig, x: torch.Tensor, pos: torch.Tenso
                      plain: bool = False) -> torch.Tensor:
     """One decode step against a (ring-buffer) KV cache ``{"k", "v"}`` of
     ``[B, L, KVH, Dh]``, which is updated in place at ``write_idx``.
-    x: [B, 1, D]; pos, kv_len, write_idx: int[B].  Returns y [B, 1, D]."""
+    x: [B, 1, D]; pos, kv_len, write_idx: int[B].  Returns y [B, 1, D].
+    A quantized cache (int8 ``k``, ``v`` and f32 ``k_scale``, ``v_scale``
+    ``[B, L, KVH]``) takes the new entry quantized and is read dequantized
+    whole, as the reference reads it."""
     q, k, v = _qkv(p, cfg, x, pos[:, None])
     bidx = torch.arange(x.shape[0], device=x.device)
-    cache["k"][bidx, write_idx] = k[:, 0]
-    cache["v"][bidx, write_idx] = v[:, 0]
-    if plain:
-        o, _, l = flash_decode_plain(q[:, 0], cache["k"], cache["v"], kv_len)
-        out = normalise(o, l, q.dtype)
+    if "k_scale" in cache:
+        for name, t in (("k", k), ("v", v)):
+            qt, st = kv_quantize(t[:, 0])
+            cache[name][bidx, write_idx] = qt
+            cache[f"{name}_scale"][bidx, write_idx] = st
+        ck = kv_dequantize(cache["k"], cache["k_scale"])
+        cv = kv_dequantize(cache["v"], cache["v_scale"])
     else:
-        out = flash_decode(q[:, 0], cache["k"], cache["v"], kv_len)  # [B, H, Dh]
+        cache["k"][bidx, write_idx] = k[:, 0]
+        cache["v"][bidx, write_idx] = v[:, 0]
+        ck, cv = cache["k"], cache["v"]
+    out = _decode_attend(q[:, 0], ck, cv, kv_len, plain=plain)  # [B, H, Dh]
+    return _out(out, p["wo"])[:, None]
+
+
+def cross_attention_decode(p: dict, cfg: ArchConfig, x: torch.Tensor, cache: dict, *,
+                           plain: bool = False) -> torch.Tensor:
+    """One token's cross-attention over the encoder's cached ``{"k", "v"}``
+    ``[B, S_enc, KVH, Dh]``, every slot valid; no RoPE, no qk-norm (as the
+    reference's decode).  x: [B, 1, D]; returns y [B, 1, D]."""
+    q = _query(p, cfg, x)
+    B, enc_len = x.shape[0], cache["k"].shape[1]
+    lens = torch.full((B,), enc_len, dtype=torch.int32, device=x.device)
+    out = _decode_attend(q[:, 0], cache["k"], cache["v"], lens, plain=plain)
     return _out(out, p["wo"])[:, None]
 
 
 # ---------------------------------------------------------------------------
 # MLP
 # ---------------------------------------------------------------------------
-def init_mlp(generator: torch.Generator, cfg: ArchConfig, device, stack: tuple = ()) -> dict:
-    """SwiGLU MLP parameters, each with the leading dims ``stack``."""
-    _check_mlp(cfg)
-    d, f = cfg.d_model, cfg.d_ff
+def init_mlp(generator: torch.Generator, cfg: ArchConfig, device, stack: tuple = (),
+             d_ff: int | None = None) -> dict:
+    """MLP parameters (SwiGLU, or the gelu MLP's two matrices), each with
+    the leading dims ``stack``; ``d_ff`` overrides the config's width
+    (arctic's dense branch)."""
+    d, f = cfg.d_model, d_ff or cfg.d_ff
     dt = getattr(torch, cfg.param_dtype)
     std = float(1.0 / np.sqrt(d))
-    return {
-        "w_gate": _normal((*stack, d, f), generator, std, dt, device),
-        "w_up": _normal((*stack, d, f), generator, std, dt, device),
-        "w_down": _normal((*stack, f, d), generator, float(std / np.sqrt(cfg.n_layers)), dt,
-                          device),
-    }
-
-
-def _check_mlp(cfg: ArchConfig) -> None:
-    if cfg.mlp_kind != "swiglu":
-        raise NotImplementedError(
-            f"mlp_kind {cfg.mlp_kind!r} is not ported yet (ROADMAP queue 1, item 11)")
+    p = {}
+    if cfg.mlp_kind == "swiglu":
+        p["w_gate"] = _normal((*stack, d, f), generator, std, dt, device)
+    p["w_up"] = _normal((*stack, d, f), generator, std, dt, device)
+    p["w_down"] = _normal((*stack, f, d), generator, float(std / np.sqrt(cfg.n_layers)), dt,
+                          device)
+    return p
 
 
 def mlp(p: dict, cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
-    """SwiGLU: ``silu(x w_gate) * (x w_up) w_down``.  The reference's
-    ``jax.nn.silu`` on bf16 rounds every op to bf16 (``g * (1 / (1 +
-    exp(-g)))``, measured bit for bit on the CPU); so does this."""
-    _check_mlp(cfg)
-    g = x @ _cast(p["w_gate"])
-    u = x @ _cast(p["w_up"])
-    h = g * (1.0 / (1.0 + torch.exp(-g))) * u
-    return h @ _cast(p["w_down"])
+    """SwiGLU ``silu(x w_gate) * (x w_up) w_down`` where the parameters hold
+    ``w_gate``, else ``gelu(x w_up) w_down``; the activations round as the
+    reference's compiled ones (`silu`, `gelu`)."""
+    if "w_gate" in p:
+        h = silu(matmul(x, _cast(p["w_gate"]))) * matmul(x, _cast(p["w_up"]))
+    else:
+        h = gelu(matmul(x, _cast(p["w_up"])))
+    return matmul(h, _cast(p["w_down"]))

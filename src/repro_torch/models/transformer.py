@@ -1,87 +1,107 @@
 """Layer-stack assembly: the port of the JAX package's `models/transformer.py`
-for the dense decoder stacks (attention + MLP sublayers).
+for every sublayer kind of the model zoo.
 
 A model is ``embed -> periods -> final_norm -> unembed``.  One period is
-the config's repeating sublayer pattern; period parameters are stacked on
-a leading axis, and a Python loop over that axis takes the place of the
-reference's ``lax.scan``.  Two serving modes share the parameters:
+the config's repeating sublayer pattern (jamba: 7 mamba + 1 attention,
+MoE on odd sublayers; whisper's decoder: self-attention, then
+cross-attention + MLP; xLSTM: mLSTM, sLSTM); period parameters are stacked
+on a leading axis, and a Python loop over that axis takes the place of the
+reference's ``lax.scan``.  Three modes share the parameters:
 
-* prefill - the full prompt, filling every sublayer's KV cache;
-* decode  - one token against the (ring-buffer) KV caches.
+* encode  - a full sequence without caches (whisper's encoder, non-causal);
+* prefill - the full prompt, filling every sublayer's cache or state;
+* decode  - one token against the (ring-buffer) KV caches and states.
 
-Caches are updated in place.  The residual stream is bf16, but the FFN's
-norm reads the attention residual's sum in f32: the reference's compiled
-program (XLA fuses the bf16 add into the norm's f32 input) keeps that sum
-unrounded, measured bit for bit on the CPU.  The sublayer kinds ``xattn``, ``mamba``,
-``mlstm`` and ``slstm`` and MoE FFNs are not ported yet and raise
-`NotImplementedError`.
+Sublayer kinds: ``attn`` (self), ``xattn`` (cross, enc-dec), ``mamba``,
+``mlstm``, ``slstm``; FFNs ``mlp``, ``moe`` (with arctic's parallel dense
+branch ``ffn_dense``) or ``none``.  Caches and states are updated in place,
+but a cross-attention cache is replaced at prefill by the encoder's K/V,
+whose length is the frames' (a cache made for another length is
+reallocated).  With ``kv_quant`` the self-attention caches hold int8
+entries and f32 scales.
+
+The residual stream is bf16, but a norm reads the residual sum before it
+in f32 when both lie in one period: the reference's compiled program (XLA
+fuses the bf16 add into the norm's f32 input) keeps that sum unrounded,
+and its scan carries the period's last sum rounded (measured bit for bit
+on the CPU).
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.configs.base import ArchConfig, LayerSpec
+from repro_torch.models import moe as moe_mod
+from repro_torch.models import ssm
 from repro_torch.models.layers import (
     COMPUTE_DTYPE,
-    _check_mlp,
+    _project,
     attention,
     attention_decode,
+    cross_attention_decode,
     init_attention,
     init_mlp,
+    kv_quantize,
     mlp,
     rms_norm,
 )
 
 __all__ = [
     "init_stack",
+    "run_stack_encode",
     "run_stack_prefill",
     "run_stack_decode",
     "init_stack_cache",
     "cache_len_for",
-    "check_stack",
 ]
 
-
-def _unported(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported yet (ROADMAP queue 1, item 11: the rest of the model zoo)")
+_KINDS = ("attn", "xattn", "mamba", "mlstm", "slstm")
+_FFNS = ("mlp", "moe", "none")
 
 
 def _check_spec(spec: LayerSpec) -> None:
-    if spec.kind != "attn":
-        raise _unported(f"sublayer kind {spec.kind!r}")
-    if spec.ffn not in ("mlp", "none"):
-        raise _unported(f"ffn {spec.ffn!r}")
+    if spec.kind not in _KINDS or spec.ffn not in _FFNS:
+        raise ValueError(f"unknown sublayer {spec}")
 
 
-def check_stack(cfg: ArchConfig) -> None:
-    """Raise for the first sublayer kind or FFN of ``cfg`` that is not
-    ported, before anything is allocated."""
-    for spec in cfg.period:
+def _periods(cfg: ArchConfig, period, n_layers) -> tuple:
+    period = period or cfg.period
+    for spec in period:
         _check_spec(spec)
-        if spec.ffn == "mlp":
-            _check_mlp(cfg)
+    return period, (n_layers or cfg.n_layers) // len(period)
 
 
 # ---------------------------------------------------------------------------
 # init
 # ---------------------------------------------------------------------------
+_MIXER_INIT = {"attn": init_attention, "xattn": init_attention, "mamba": ssm.init_mamba,
+               "mlstm": ssm.init_mlstm, "slstm": ssm.init_slstm}
+
+
 def _init_sublayer(generator, cfg: ArchConfig, spec: LayerSpec, device, stack) -> dict:
-    _check_spec(spec)
     dt = getattr(torch, cfg.param_dtype)
     p = {"norm1": torch.ones((*stack, cfg.d_model), dtype=dt, device=device),
-         "mixer": init_attention(generator, cfg, device, stack)}
+         "mixer": _MIXER_INIT[spec.kind](generator, cfg, device, stack)}
     if spec.ffn != "none":
         p["norm2"] = torch.ones((*stack, cfg.d_model), dtype=dt, device=device)
-        p["ffn"] = init_mlp(generator, cfg, device, stack)
+        if spec.ffn == "moe":
+            p["ffn"] = moe_mod.init_moe(generator, cfg, device, stack)
+            if cfg.moe_dense_ff:  # arctic: parallel dense residual branch
+                p["ffn_dense"] = init_mlp(generator, cfg, device, stack, d_ff=cfg.moe_dense_ff)
+        else:
+            p["ffn"] = init_mlp(generator, cfg, device, stack)
     return p
 
 
-def init_stack(generator: torch.Generator, cfg: ArchConfig, device) -> dict:
-    """Stacked period params: every leaf gets a leading dim of n_periods
-    (drawn stacked, so the full width never holds two copies)."""
-    return {f"sub{i}": _init_sublayer(generator, cfg, s, device, (cfg.n_periods,))
-            for i, s in enumerate(cfg.period)}
+def init_stack(generator: torch.Generator, cfg: ArchConfig, device, period=None,
+               n_layers=None) -> dict:
+    """Stacked period params: every leaf gets a leading dim of the period
+    count (drawn stacked, so the full width never holds two copies).
+    ``period`` / ``n_layers`` default to the config's (the encoder passes
+    its own)."""
+    period, n_p = _periods(cfg, period, n_layers)
+    return {f"sub{i}": _init_sublayer(generator, cfg, s, device, (n_p,))
+            for i, s in enumerate(period)}
 
 
 def _index(tree, i: int):
@@ -98,83 +118,178 @@ def cache_len_for(cfg: ArchConfig, seq_len: int) -> int:
     return min(cfg.window, seq_len) if cfg.window else seq_len
 
 
-def init_stack_cache(cfg: ArchConfig, batch: int, seq_len: int, device) -> dict:
-    """Zeroed bf16 KV caches ``[n_periods, B, L, KVH, Dh]`` per sublayer."""
-    L = cache_len_for(cfg, seq_len)
-    shape = (cfg.n_periods, batch, L, cfg.n_kv_heads, cfg.head_dim)
-    cache = {}
-    for i, spec in enumerate(cfg.period):
-        _check_spec(spec)
-        if cfg.kv_quant:
-            raise _unported("the int8 KV cache (kv_quant)")
-        cache[f"sub{i}"] = {"k": torch.zeros(shape, dtype=COMPUTE_DTYPE, device=device),
-                            "v": torch.zeros(shape, dtype=COMPUTE_DTYPE, device=device)}
-    return cache
+def _sublayer_cache(cfg: ArchConfig, spec: LayerSpec, batch: int, seq_len: int, enc_len: int,
+                    device, stack) -> dict:
+    kvh, dh = cfg.n_kv_heads, cfg.head_dim
+    if spec.kind in ("attn", "xattn"):
+        L = cache_len_for(cfg, seq_len) if spec.kind == "attn" else enc_len
+        shape = (*stack, batch, L, kvh, dh)
+        if spec.kind == "attn" and cfg.kv_quant:
+            return {"k": torch.zeros(shape, dtype=torch.int8, device=device),
+                    "v": torch.zeros(shape, dtype=torch.int8, device=device),
+                    "k_scale": torch.zeros(shape[:-1], dtype=torch.float32, device=device),
+                    "v_scale": torch.zeros(shape[:-1], dtype=torch.float32, device=device)}
+        return {"k": torch.zeros(shape, dtype=COMPUTE_DTYPE, device=device),
+                "v": torch.zeros(shape, dtype=COMPUTE_DTYPE, device=device)}
+    return getattr(ssm, f"{spec.kind}_init_state")(cfg, batch, device, stack)
+
+
+def init_stack_cache(cfg: ArchConfig, batch: int, seq_len: int, device, enc_len: int = 0) -> dict:
+    """Zeroed caches and states per sublayer, each with a leading dim of
+    n_periods: KV caches ``[n, B, L, KVH, Dh]`` (bf16, or int8 with f32
+    scales ``[n, B, L, KVH]``), cross-attention caches of ``enc_len`` slots,
+    and the recurrent blocks' initial states."""
+    period, n_p = _periods(cfg, None, None)
+    return {f"sub{i}": _sublayer_cache(cfg, s, batch, seq_len, enc_len, device, (n_p,))
+            for i, s in enumerate(period)}
 
 
 # ---------------------------------------------------------------------------
 # forward modes
 # ---------------------------------------------------------------------------
-def _ffn_apply(p: dict, cfg: ArchConfig, spec: LayerSpec, x_sum: torch.Tensor) -> torch.Tensor:
+def _ffn_apply(p: dict, cfg: ArchConfig, spec: LayerSpec, x_sum: torch.Tensor, *,
+               last: bool, routes=None) -> torch.Tensor:
     """Post-mixer FFN with residual.  ``x_sum`` is the mixer's residual sum
-    in f32: rounded to bf16 for the stream, unrounded for the norm."""
+    in f32: rounded to bf16 for the stream, unrounded for the norm.  Returns
+    the new residual sum, in f32 for the next sublayer's norm, or rounded
+    to bf16 for the period's ``last`` sublayer (the reference's scan carries
+    it in bf16).  The MoE's aux loss is a training term, not returned."""
     x = x_sum.to(COMPUTE_DTYPE)
     if spec.ffn == "none":
-        return x
+        return x if last else x_sum
     h = rms_norm(x_sum, p["norm2"], cfg.norm_eps).to(COMPUTE_DTYPE)
-    return x + mlp(p["ffn"], cfg, h)
+    if spec.ffn == "moe":
+        y, _ = moe_mod.moe(p["ffn"], cfg, h, routes)
+        if "ffn_dense" in p:
+            y = y + mlp(p["ffn_dense"], cfg, h)
+    else:
+        y = mlp(p["ffn"], cfg, h)
+    return x + y if last else x.float() + y.float()
 
 
-def _mixer_prefill(p, cfg: ArchConfig, spec: LayerSpec, x, positions, cache, *, plain):
-    """Full-sequence attention that also writes this sublayer's KV cache:
-    slots ``0 .. take-1`` without a window, slot ``pos % L`` with one.
-    Returns the residual sum in f32."""
-    h = rms_norm(x, p["norm1"], cfg.norm_eps)
-    y, k, v = attention(p["mixer"], cfg, h, positions, plain=plain)
+def _encoder_kv(p: dict, enc_out: torch.Tensor):
+    """Cross-attention's keys and values from the encoder output (no bias,
+    no RoPE, as the reference projects them)."""
+    return _project(enc_out, p["wk"]), _project(enc_out, p["wv"])
+
+
+def run_stack_encode(params: dict, cfg: ArchConfig, x: torch.Tensor, positions: torch.Tensor,
+                     period, *, plain: bool = False) -> torch.Tensor:
+    """A full sequence through a stack of self-attention sublayers without
+    caches, non-causal (the reference's ``run_stack_train(..., causal=False)``
+    for whisper's encoder; RoPE is applied, as there)."""
+    period = _periods(cfg, period, None)[0]
+    for n in range(params["sub0"]["norm1"].shape[0]):
+        p_n = _index(params, n)
+        for i, spec in enumerate(period):
+            p = p_n[f"sub{i}"]
+            h = rms_norm(x, p["norm1"], cfg.norm_eps).to(COMPUTE_DTYPE)
+            y, _, _ = attention(p["mixer"], cfg, h, positions, causal=False, plain=plain)
+            x = _ffn_apply(p, cfg, spec, x.to(COMPUTE_DTYPE).float() + y.float(),
+                           last=i == len(period) - 1)
+    return x
+
+
+def _write_kv(cfg: ArchConfig, cache: dict, k: torch.Tensor, v: torch.Tensor) -> None:
+    """Write a prompt's k, v ``[B, S, KVH, Dh]`` into the full cache buffer
+    at their (ring) slots: ``0 .. take-1`` without a window, ``pos % L``
+    with one; quantized where the cache is int8."""
     S_in, L = k.shape[1], cache["k"].shape[1]
     take = min(S_in, L)
     if cfg.window:
-        idx = (torch.arange(take, device=x.device) + (S_in - take)) % L
-        cache["k"][:, idx] = k[:, S_in - take:]
-        cache["v"][:, idx] = v[:, S_in - take:]
+        idx = (torch.arange(take, device=k.device) + (S_in - take)) % L
+        k, v = k[:, S_in - take:], v[:, S_in - take:]
     else:
-        cache["k"][:, :take] = k[:, :take]
-        cache["v"][:, :take] = v[:, :take]
-    return x.float() + y.float()
+        idx = torch.arange(take, device=k.device)
+        k, v = k[:, :take], v[:, :take]
+    if "k_scale" in cache:
+        for name, t in (("k", k), ("v", v)):
+            q, s = kv_quantize(t)
+            cache[name][:, idx] = q
+            cache[f"{name}_scale"][:, idx] = s
+    else:
+        cache["k"][:, idx] = k
+        cache["v"][:, idx] = v
+
+
+def _set_state(cache: dict, state: dict) -> None:
+    for name, value in state.items():
+        cache[name].copy_(value)
+
+
+def _mixer_prefill(p, cfg: ArchConfig, spec: LayerSpec, x, positions, enc_out, cache, *,
+                   plain):
+    """Full-sequence forward that also fills this sublayer's cache or state.
+    Returns the residual sum in f32."""
+    h = rms_norm(x, p["norm1"], cfg.norm_eps).to(COMPUTE_DTYPE)
+    if spec.kind == "attn":
+        y, k, v = attention(p["mixer"], cfg, h, positions, plain=plain)
+        _write_kv(cfg, cache, k, v)
+    elif spec.kind == "xattn":
+        kx, vx = _encoder_kv(p["mixer"], enc_out)
+        y, _, _ = attention(p["mixer"], cfg, h, positions, rotary=False, kv=(kx, vx),
+                            plain=plain)
+        cache["k"].copy_(kx)
+        cache["v"].copy_(vx)
+    else:
+        y, state = getattr(ssm, f"{spec.kind}_prefill")(p["mixer"], cfg, h)
+        _set_state(cache, state)
+    return x.to(COMPUTE_DTYPE).float() + y.float()
+
+
+def _fit_cross_caches(cfg: ArchConfig, cache: dict, enc_out) -> None:
+    """Replace each cross-attention cache whose length is not the encoder
+    output's by one that is (the reference's prefill returns the encoder's
+    K/V in its place)."""
+    for i, spec in enumerate(cfg.period):
+        c = cache[f"sub{i}"]
+        if spec.kind == "xattn" and c["k"].shape[2] != enc_out.shape[1]:
+            shape = (*c["k"].shape[:2], enc_out.shape[1], *c["k"].shape[3:])
+            for name in ("k", "v"):
+                c[name] = torch.empty(shape, dtype=c[name].dtype, device=c[name].device)
 
 
 def run_stack_prefill(params: dict, cfg: ArchConfig, x: torch.Tensor, positions: torch.Tensor,
-                      cache: dict, *, plain: bool = False) -> tuple[torch.Tensor, dict]:
-    for spec in cfg.period:
-        _check_spec(spec)
-    for n in range(cfg.n_periods):
+                      cache: dict, *, encoder_out: torch.Tensor | None = None,
+                      plain: bool = False, routes=None) -> tuple[torch.Tensor, dict]:
+    period, n_p = _periods(cfg, None, None)
+    if encoder_out is not None:
+        _fit_cross_caches(cfg, cache, encoder_out)
+    for n in range(n_p):
         p_n, c_n = _index(params, n), _index(cache, n)
-        for i, spec in enumerate(cfg.period):
-            x = _mixer_prefill(p_n[f"sub{i}"], cfg, spec, x, positions, c_n[f"sub{i}"],
-                               plain=plain)
-            x = _ffn_apply(p_n[f"sub{i}"], cfg, spec, x)
+        for i, spec in enumerate(period):
+            x = _mixer_prefill(p_n[f"sub{i}"], cfg, spec, x, positions, encoder_out,
+                               c_n[f"sub{i}"], plain=plain)
+            x = _ffn_apply(p_n[f"sub{i}"], cfg, spec, x, last=i == len(period) - 1,
+                           routes=routes)
     return x, cache
 
 
 def _mixer_decode(p, cfg: ArchConfig, spec: LayerSpec, x, pos, cache, *, plain):
     """x: [B, 1, D]; pos: int[B], the absolute position of this token.
     Returns the residual sum in f32."""
-    h = rms_norm(x, p["norm1"], cfg.norm_eps)
-    L = cache["k"].shape[1]
-    write_idx = pos % L if cfg.window else torch.clamp(pos, max=L - 1)
-    kv_len = torch.clamp(pos + 1, max=L)
-    y = attention_decode(p["mixer"], cfg, h, pos, cache, kv_len, write_idx=write_idx,
-                         plain=plain)
-    return x.float() + y.float()
+    h = rms_norm(x, p["norm1"], cfg.norm_eps).to(COMPUTE_DTYPE)
+    if spec.kind == "attn":
+        L = cache["k"].shape[1]
+        write_idx = pos % L if cfg.window else torch.clamp(pos, max=L - 1)
+        kv_len = torch.clamp(pos + 1, max=L)
+        y = attention_decode(p["mixer"], cfg, h, pos, cache, kv_len, write_idx=write_idx,
+                             plain=plain)
+    elif spec.kind == "xattn":
+        y = cross_attention_decode(p["mixer"], cfg, h, cache, plain=plain)
+    else:
+        y, state = getattr(ssm, f"{spec.kind}_decode")(p["mixer"], cfg, h, cache)
+        _set_state(cache, state)
+    return x.to(COMPUTE_DTYPE).float() + y.float()
 
 
 def run_stack_decode(params: dict, cfg: ArchConfig, x: torch.Tensor, pos: torch.Tensor,
-                     cache: dict, *, plain: bool = False) -> tuple[torch.Tensor, dict]:
-    for spec in cfg.period:
-        _check_spec(spec)
-    for n in range(cfg.n_periods):
+                     cache: dict, *, plain: bool = False, routes=None) -> tuple[torch.Tensor, dict]:
+    period, n_p = _periods(cfg, None, None)
+    for n in range(n_p):
         p_n, c_n = _index(params, n), _index(cache, n)
-        for i, spec in enumerate(cfg.period):
+        for i, spec in enumerate(period):
             x = _mixer_decode(p_n[f"sub{i}"], cfg, spec, x, pos, c_n[f"sub{i}"], plain=plain)
-            x = _ffn_apply(p_n[f"sub{i}"], cfg, spec, x)
+            x = _ffn_apply(p_n[f"sub{i}"], cfg, spec, x, last=i == len(period) - 1,
+                           routes=routes)
     return x, cache

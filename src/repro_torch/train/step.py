@@ -19,22 +19,25 @@ def greedy(logits: torch.Tensor) -> torch.Tensor:
     return torch.argmax(logits, dim=-1).to(torch.int32)
 
 
-def build_prefill_step(cfg: ArchConfig, *, plain: bool = False):
-    """prefill(params, batch, cache) -> (next int32[B], cache, logits f32[B, V])."""
+def build_prefill_step(cfg: ArchConfig, *, plain: bool = False, routes=None):
+    """prefill(params, batch, cache) -> (next int32[B], cache, logits f32[B, V]).
+    ``batch`` holds ``tokens`` and the frontend's ``patches`` or ``frames``
+    (`models.model.prefill`); ``routes`` records or replays the MoE choices."""
 
     def prefill_step(params, batch, cache):
-        logits, cache = M.prefill(params, cfg, batch, cache, plain=plain)
+        logits, cache = M.prefill(params, cfg, batch, cache, plain=plain, routes=routes)
         return greedy(logits), cache, logits
 
     return prefill_step
 
 
-def build_decode_step(cfg: ArchConfig, *, plain: bool = False):
+def build_decode_step(cfg: ArchConfig, *, plain: bool = False, routes=None):
     """decode(params, tokens [B, 1], pos [B], cache) -> (next int32[B], cache,
     logits f32[B, V])."""
 
     def decode_step(params, tokens, pos, cache):
-        logits, cache = M.decode_step(params, cfg, tokens, pos, cache, plain=plain)
+        logits, cache = M.decode_step(params, cfg, tokens, pos, cache, plain=plain,
+                                      routes=routes)
         return greedy(logits), cache, logits
 
     return decode_step

@@ -1,12 +1,10 @@
 """The port's dense serving path against the JAX model zoo, on the CPU.
 
-The JAX model imports `repro.dist.sharding`, which the tree does not hold.
-Outside a mesh its `shard` is a no-op (`models/layers.py`), so a
-module-scoped fixture puts a stub with a no-op `shard` into `sys.modules`,
-imports the reference model under it and, when the module's tests end,
-removes the stub and every `repro.models*` / `repro.dist*` module it
-brought in.  No global JAX or torch setting is touched, and every
-reference call is jitted.
+The JAX model imports `repro.dist.sharding`, which the tree does not hold;
+the module-scoped `jax_model` fixture of `_torch_zoo_reference` imports it
+under a stub with a no-op `shard` and removes both when the module's tests
+end.  No global JAX or torch setting is touched, and every reference call
+is jitted.
 
 Both packages run the same weights (the reference's `init_params`, carried
 over by `convert.model_params`) on the same prompts: `smoke()` of qwen3-8b
@@ -28,9 +26,7 @@ greedy tokens exactly wherever the reference's top-1 / top-2 margin
 exceeds twice that.
 """
 import dataclasses
-import importlib
 import sys
-import types
 
 import numpy as np
 import pytest
@@ -39,48 +35,18 @@ torch = pytest.importorskip("torch")
 
 import jax  # noqa: E402
 
+from _torch_zoo_reference import QUANT, configs, jax_model  # noqa: E402,F401
 from repro.configs import registry as jregistry  # noqa: E402
 from repro_torch import convert  # noqa: E402
 from repro_torch.configs import registry  # noqa: E402
 from repro_torch.configs.base import LayerSpec  # noqa: E402
-from repro_torch.launch.serve import generate, prompts  # noqa: E402
+from repro_torch.launch.serve import generate, prompts, serve_batch  # noqa: E402
 from repro_torch.models import model as M  # noqa: E402
 from repro_torch.train.step import build_prefill_step  # noqa: E402
 
 TOL = 5e-2
 ARCHS = ("qwen3-8b", "h2o-danube-3-4b")
 B, S, STEPS = 2, 48, 8
-
-
-def _stubbed_prefix(name: str) -> bool:
-    return name.split(".")[:2] in (["repro", "models"], ["repro", "dist"])
-
-
-@pytest.fixture(scope="module")
-def jax_model():
-    """The reference's `repro.models.model`, imported under a no-op
-    `repro.dist.sharding` stub that lives only as long as this fixture."""
-    assert "repro.dist" not in sys.modules
-    before = set(sys.modules)
-    dist = types.ModuleType("repro.dist")
-    sharding = types.ModuleType("repro.dist.sharding")
-    sharding.shard = lambda x, *axes, **kw: x
-    sharding.batch_shard_count = lambda: 1
-    dist.sharding = sharding
-    sys.modules["repro.dist"] = dist
-    sys.modules["repro.dist.sharding"] = sharding
-    try:
-        yield importlib.import_module("repro.models.model")
-    finally:
-        for name in sorted(set(sys.modules) - before, reverse=True):
-            if not _stubbed_prefix(name):
-                continue
-            module = sys.modules.pop(name)
-            parent, _, child = name.rpartition(".")
-            if getattr(sys.modules.get(parent), child, None) is module:
-                delattr(sys.modules[parent], child)
-        assert "repro.dist" not in sys.modules
-        assert not any(_stubbed_prefix(n) for n in set(sys.modules) - before)
 
 
 @pytest.fixture(scope="module")
@@ -111,7 +77,8 @@ def runs(jax_model):
         step = build_prefill_step(cfg)
         _, port_cache_prefill, port_prefill_logits = step(
             port_params, {"tokens": tokens}, M.make_cache(cfg, B, S + STEPS + 1, device="cpu"))
-        run = generate(port_params, cfg, tokens, STEPS + 1, forced=torch.as_tensor(ref_tokens))
+        run = generate(port_params, cfg, {"tokens": tokens}, STEPS + 1,
+                       forced=torch.as_tensor(ref_tokens))
         out[arch] = dict(
             cfg=cfg, jcfg=jcfg, np_params=np_params, ref_logits=ref_logits,
             ref_tokens=ref_tokens, ref_cache_prefill=ref_cache_prefill,
@@ -191,10 +158,44 @@ def test_registry_knows_every_reference_id():
         registry.get_smoke_config("no-such-model")
 
 
-@pytest.mark.parametrize("arch", ARCHS)
-def test_convert_round_trips_params_and_caches(runs, arch):
-    r = runs[arch]
-    port = convert.model_params(r["np_params"])
+# every arch, and qwen3-8b with the int8 KV cache
+TREES = (*jregistry.ARCH_IDS, QUANT)
+
+
+@pytest.fixture(scope="module")
+def trees(jax_model):
+    """Per case: the reference's parameter tree and a decode cache of its
+    layout filled with seeded values of each leaf's dtype (numpy)."""
+    rng = np.random.default_rng(0)
+    out = {}
+    for case in TREES:
+        jcfg, cfg = configs(case)
+        params = jax.jit(lambda key, c=jcfg: jax_model.init_params(key, c))(
+            jax.random.PRNGKey(0))
+        cache = jax.tree.map(np.asarray, jax.jit(lambda c=jcfg: jax_model.make_cache(c, 2, 8))())
+
+        def fill(a):
+            if a.dtype == np.int8:
+                return rng.integers(-127, 128, a.shape).astype(np.int8)
+            return rng.standard_normal(a.shape).astype(a.dtype)
+
+        out[case] = dict(cfg=cfg, params=jax.tree.map(np.asarray, params),
+                         cache=jax.tree.map(fill, cache))
+    return out
+
+
+def _bits(a):
+    a = np.asarray(a)
+    return a.view(np.int16) if a.dtype.itemsize == 2 else a
+
+
+@pytest.mark.parametrize("arch", TREES)
+def test_convert_round_trips_params_and_caches(trees, arch):
+    """`convert` carries every leaf across with its bits and dtype: the
+    encoder, the projector, MoE routers and experts, arctic's dense branch,
+    the recurrent blocks' f32 leaves; int8 caches with their f32 scales,
+    Mamba's h / conv, mLSTM's C / n / m and sLSTM's c / n / m / h."""
+    r = trees[arch]
 
     def walk(p, ref):
         assert p.keys() == ref.keys()
@@ -202,22 +203,20 @@ def test_convert_round_trips_params_and_caches(runs, arch):
             if isinstance(ref[k], dict):
                 walk(p[k], ref[k])
             else:
-                assert p[k].dtype == torch.float32
-                np.testing.assert_array_equal(p[k].numpy(), ref[k])
+                assert str(p[k].dtype).split(".")[1] == ref[k].dtype.name, k
+                got = p[k].view(torch.int16) if p[k].dtype == torch.bfloat16 else p[k]
+                np.testing.assert_array_equal(got.numpy(), _bits(ref[k]))
 
-    walk(port, r["np_params"])
-    cache = convert.model_cache(r["ref_cache_end"])
-    for name in ("k", "v"):
-        got = cache["sub0"][name]
-        assert got.dtype == torch.bfloat16
-        np.testing.assert_array_equal(got.view(torch.int16).numpy(),
-                                      r["ref_cache_end"]["sub0"][name].view(np.int16))
+    walk(convert.model_params(r["params"]), r["params"])
+    walk(convert.model_cache(r["cache"]), r["cache"])
 
 
-def test_port_params_have_the_reference_layout(runs):
+@pytest.mark.parametrize("arch", TREES)
+def test_port_params_have_the_reference_layout(trees, arch):
     """`init_params` from a torch.Generator builds the reference's tree:
-    the same keys, shapes and dtypes (not its numbers)."""
-    r = runs["qwen3-8b"]
+    the same keys, shapes and dtypes (not its numbers); so does
+    `make_cache`.  `compute_params` casts the leaves the reference casts."""
+    r = trees[arch]
     port = M.init_params(torch.Generator().manual_seed(0), r["cfg"])
 
     def walk(p, ref):
@@ -226,33 +225,43 @@ def test_port_params_have_the_reference_layout(runs):
             if isinstance(ref[k], dict):
                 walk(p[k], ref[k])
             else:
-                assert tuple(p[k].shape) == ref[k].shape and p[k].dtype == torch.float32
+                assert tuple(p[k].shape) == ref[k].shape, k
+                assert str(p[k].dtype).split(".")[1] == ref[k].dtype.name, k
 
-    walk(port, r["np_params"])
+    walk(port, r["params"])
+    walk(M.make_cache(r["cfg"], 2, 8, device="cpu"), r["cache"])
     bf16 = M.compute_params(port)
-    assert bf16["layers"]["sub0"]["mixer"]["wq"].dtype == torch.bfloat16
+    sub = bf16["layers"]["sub0"]
+    assert sub["mixer"][next(iter(sub["mixer"]))].dtype == torch.bfloat16
     assert bf16["head"] is port["head"] and bf16["embed"] is port["embed"]
 
 
 def test_unported_kinds_raise():
+    """Every sublayer kind and FFN of the zoo is ported; a kind the zoo
+    does not have raises before anything is allocated, and training
+    (`train_loss`) is not ported."""
     cfg = registry.get_smoke_config("qwen3-8b")
     gen = torch.Generator().manual_seed(0)
-    for period in ((LayerSpec("mamba", "none"),), (LayerSpec("attn", "moe"),)):
-        with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 11"):
-            M.init_params(gen, dataclasses.replace(cfg, period=period))
-    with pytest.raises(NotImplementedError):
-        M.make_cache(dataclasses.replace(cfg, kv_quant=True), 1, 8, device="cpu")
-    with pytest.raises(NotImplementedError):
-        M.init_params(gen, dataclasses.replace(cfg, encoder_layers=2))
-    with pytest.raises(NotImplementedError):
-        M.init_params(gen, dataclasses.replace(cfg, mlp_kind="gelu"))
-    # the real configs of an MoE, an xLSTM and an encoder-decoder arch
-    # resolve, and their models raise until their kinds are ported
-    for arch in ("dbrx-132b", "xlstm-350m", "whisper-large-v3"):
-        with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 11"):
-            M.init_params(gen, registry.get_config(arch))
-        with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 11"):
-            M.make_cache(registry.get_config(arch), 1, 8, device="cpu")
+    for period in ((LayerSpec("conv", "mlp"),), (LayerSpec("attn", "glu"),)):
+        bad = dataclasses.replace(cfg, period=period)
+        with pytest.raises(ValueError, match="unknown sublayer"):
+            M.init_params(gen, bad)
+        with pytest.raises(ValueError, match="unknown sublayer"):
+            M.make_cache(bad, 1, 8, device="cpu")
+    assert not hasattr(M, "train_loss")
+
+
+@pytest.mark.parametrize("arch", registry.ARCH_IDS)
+def test_every_arch_builds_caches_and_prefills(arch):
+    """Each of the ten archs builds, makes a cache and serves at smoke size
+    on the CPU: the serving CLI's batch, prefill, two decode steps, finite
+    logits of the vocabulary's width."""
+    cfg = registry.get_smoke_config(arch)
+    params = M.compute_params(M.init_params(torch.Generator().manual_seed(0), cfg))
+    run = generate(params, cfg, serve_batch(cfg, 2, 16, "cpu"), 3)
+    assert run.logits.shape == (3, 2, cfg.vocab_size)
+    assert bool(torch.isfinite(run.logits).all())
+    assert run.tokens.shape == (2, 3) and run.tokens.dtype == torch.int32
 
 
 def test_qkv_with_biases_matches_reference(jax_model):
@@ -285,6 +294,6 @@ def test_plain_flag_runs_the_plain_versions_on_the_cpu():
     cfg = registry.get_smoke_config("h2o-danube-3-4b")
     params = M.compute_params(M.init_params(torch.Generator().manual_seed(1), cfg))
     tokens = prompts(cfg, 2, 40, "cpu")
-    a = generate(params, cfg, tokens, 4)
-    b = generate(params, cfg, tokens, 4, plain=True)
+    a = generate(params, cfg, {"tokens": tokens}, 4)
+    b = generate(params, cfg, {"tokens": tokens}, 4, plain=True)
     assert torch.equal(a.tokens, b.tokens) and torch.equal(a.logits, b.logits)
