@@ -127,8 +127,32 @@ Phases (the first that fails ends the run with a nonzero exit):
    (b): prefill and decode times, peak memory and launches, then the plain
    versions' run teacher-forced on tokens and MoE choices within
    `FULL_RMS_TOL` / `FULL_MAX_TOL`.
+11. Training (phase `train`): (a) every arch's smoke config, 3 steps of 4
+   x 64 tokens (AdamW; Adafactor for arctic, dbrx and jamba) on the card
+   against the same steps on the CPU, the CPU run's MoE choices replayed:
+   losses within 2e-3 and step-1 gradients within 5e-2 relative L2 per
+   leaf (jamba 0.1), the CPU tests' tolerances; `flash_attention` twice
+   (remat) and `flash_attention_bwd` once an attention sublayer and
+   encoder layer a step; (b) the trainer CLI (`--arch qwen3-8b --smoke
+   --device cuda --steps 6 --ckpt-every 3`) under deterministic
+   algorithms, straight and resumed from the step-3 checkpoint: the final
+   checkpoints equal SHA1 for SHA1 (two runs without deterministic
+   algorithms are compared too); (c) full width: qwen3-8b at its
+   published widths cut to 4 of 36 layers, f32 weights drawn on the card
+   from seed 0, `SyntheticLM` batches of 4 x 2,048 tokens, AdamW at the
+   CLI's defaults, 4 steps: ms a step (steps 2-4), tokens/s, peak memory
+   and the launches a step (8 forward, 4 backward, no copies); then the
+   same steps with the plain attention and with the plain attention in
+   float64 (the noise floor, as `scripts/dense_noise_floor.py --train`
+   measures it): every step's loss and every leaf of the step-1 gradient
+   of the kernels' run within `TRAIN_FLOOR_RATIO` times the floor of the
+   plain run.  Phase 2 holds `flash_attention_bwd` (and the forward's
+   lse) to the plain versions at the CPU tests' shapes, the train shape
+   and the zoo's (whisper's encoder and cross-attention, starcoder2's
+   4,096 window, arctic's group of 7, a group of 7 at D 20), two calls
+   bit-equal, and times it beside the plain backward and SDPA's.
 
-Each path of phases 4-10 runs with the kernels' launch counts set to 0
+Each path of phases 4-11 runs with the kernels' launch counts set to 0
 just before it and read just after; a kernel row's ``launches`` is its
 total over those paths (the comparisons of phases 5 and 6 not counted).  The
 last lines are the card's name and power limit, one JSON object with a
@@ -168,7 +192,10 @@ from repro_torch.core.spray import (  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels.flash_attention import (  # noqa: E402
     flash_attention,
+    flash_attention_bwd,
+    flash_attention_bwd_plain,
     flash_attention_plain,
+    flash_attention_with_lse,
     plan,
 )
 from repro_torch.kernels.flash_decode import (  # noqa: E402
@@ -184,9 +211,16 @@ from repro_torch.kernels.lt_encode import (  # noqa: E402
 )
 from repro_torch.kernels.link_fold import link_fold, link_fold_plain, link_segments  # noqa: E402
 from repro_torch.kernels.lt_encode import plan as lt_plan  # noqa: E402
+from repro_torch import tree  # noqa: E402
+from repro_torch.data.pipeline import SyntheticLM, host_batch  # noqa: E402
 from repro_torch.launch.serve import generate, serve_batch  # noqa: E402
+from repro_torch.launch.train import modality_stubs  # noqa: E402
+from repro_torch.models import layers  # noqa: E402
 from repro_torch.models import model as M  # noqa: E402
 from repro_torch.models.layers import kv_dequantize  # noqa: E402
+from repro_torch.optim.api import make_optimizer  # noqa: E402
+from repro_torch.train.state import TrainState  # noqa: E402
+from repro_torch.train.step import build_train_step  # noqa: E402
 from repro_torch.models.moe import Routes  # noqa: E402
 from repro_torch.kernels.spray_select import (  # noqa: E402
     spray_select,
@@ -354,6 +388,33 @@ WHISPER_BATCH, WHISPER_FRAMES, WHISPER_PROMPT, WHISPER_GEN = 4, 1500, 384, 64
 # difference.
 FULL_RMS_TOL, FULL_MAX_TOL = 0.1, 0.5
 FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}  # tests/test_kernels.py's
+# flash_attention's backward against its plain version on the same inputs
+# (tests/test_torch_cuda.py's): both take every product and sum in f32, so
+# f32 results differ by the order of the sums, bf16 ones by a rounding step
+BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+# training at smoke size, card against CPU: the CPU tests' runs and
+# tolerances (tests/test_torch_train.py, test_torch_train_zoo.py): 3 steps
+# of 4 x 64 tokens; losses within 2e-3, step-1 gradients within 5e-2
+# relative L2 per leaf (jamba's within 0.1)
+TRAIN_SMOKE_STEPS, TRAIN_SMOKE_BATCH, TRAIN_SMOKE_SEQ = 3, 4, 64
+TRAIN_LOSS_TOL, TRAIN_GRAD_TOL = 2e-3, {"jamba-v0.1-52b": 0.1}
+# the full-width training cell: qwen3-8b at its published widths, cut to 4
+# of its 36 layers (f32 params, grads and AdamW's m and v of all 36 layers
+# would need ~164 GB; 4 layers hold every leaf kind of the dense model),
+# SyntheticLM batches of 4 x 2,048 tokens, AdamW at the trainer CLI's
+# defaults (lr 3e-3, cosine schedule), 4 steps
+TRAIN_ARCH, TRAIN_LAYERS, TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = "qwen3-8b", 4, 4, 2048, 4
+# The kernels' run against the plain run, each held to the noise floor:
+# the plain run against the same run with its attention in float64.  Any
+# perturbation of a bf16 rounding spreads through the layers' later bf16
+# roundings until the runs differ at bf16's own noise level: on an H100
+# the floor is a relative L2 of ~0.013 in every leaf of the step-1
+# gradient and up to 1.3e-4 in the losses (measured on one H100), and the
+# kernels' run stood 1.2 (losses) and 1.55 (gradients) times the floor
+# from the plain run.  As the serving cell holds its kernels at about 3
+# times its floor (FULL_RMS_TOL against rms 0.035), every step's loss and
+# every leaf of the step-1 gradient must stay within 4 times the floor.
+TRAIN_FLOOR_RATIO = 4.0
 
 
 def golden_fabric(n: int, device) -> FabricParams:
@@ -1567,6 +1628,7 @@ def phase_flash_attention(dev):
     qc, kc, vc = q.contiguous(), k.contiguous(), v.contiguous()
     graphed = _timings("flash_attention", {
         "kernel": lambda: flash_attention(q, k, v),
+        "kernel with lse": lambda: flash_attention_with_lse(q, k, v),
         "plain": lambda: flash_attention_plain(q, k, v),
         "sdpa": lambda: F.scaled_dot_product_attention(qc, kc, vc, is_causal=True,
                                                        enable_gqa=True),
@@ -1594,6 +1656,130 @@ def phase_flash_attention(dev):
                 replaces="src/repro/kernels/flash_attention.py:92", launches=0,
                 max_abs_err=err, ms=graphed["kernel"], plain_ms=graphed["plain"],
                 bound_ms=max(t_bytes, t_ops), bound_by=bound_by, library_ms=graphed["sdpa"])
+
+
+# flash_attention's backward (B, H, KVH, Sq, Sk, D, causal, window,
+# q_offset): the CPU tests' shapes (tests/test_torch_attention_grad.py),
+# both dtypes
+BWD_CASES = (
+    (2, 4, 4, 32, 32, 16, True, None, 0), (1, 4, 1, 24, 40, 32, False, None, 0),
+    (2, 4, 1, 48, 48, 32, True, 8, 0), (1, 7, 1, 20, 20, 20, True, None, 0),
+    (1, 14, 2, 16, 37, 20, True, 12, 21), (1, 8, 2, 20, 36, 16, True, None, 16),
+    (1, 2, 1, 16, 16, 16, True, None, -8), (1, 4, 2, 16, 16, 24, True, 4, -6),
+)
+# and in bf16 in the model's layout: the zoo's shapes (ZOO_ATTN_CASES) and
+# arctic's group of 7 at D 20 (name, B, H, KVH, Sq, Sk, D, causal, window)
+ZOO_BWD_CASES = ZOO_ATTN_CASES + (("group 7, D 20", 2, 14, 2, 333, 333, 20, True, None),)
+
+
+def _bwd_case(name, q, k, v, kw, tol):
+    """The forward's lse against the plain version's (its output bit-equal
+    to the call without lse), then the backward kernel against its plain
+    version on the same inputs: one launch a call, two calls bit-equal.
+    Returns (max |diff|, the inputs)."""
+    o, lse = flash_attention_with_lse(q, k, v, **kw)
+    if not torch.equal(o, flash_attention(q, k, v, **kw)):
+        raise AssertionError(f"flash_attention {name}: the output with lse differs")
+    want_lse = _attention_lse_plain(q, k, v, kw)
+    if not torch.equal(torch.isinf(lse), torch.isinf(want_lse)):
+        raise AssertionError(f"flash_attention {name}: lse's empty rows differ")
+    fin = torch.isfinite(want_lse)
+    lse_err = _check_close(lse[fin], want_lse[fin], 1e-4, f"flash_attention {name} lse")
+    del want_lse
+    g = torch.Generator(device=q.device).manual_seed(q.numel() % 1000)
+    do = _randn(g, tuple(o.shape), q.dtype, q.device).as_strided(o.shape, o.stride())
+    before = flash_attention_bwd.launches
+    got = flash_attention_bwd(q, k, v, o, lse, do, **kw)
+    again = flash_attention_bwd(q, k, v, o, lse, do, **kw)
+    torch.cuda.synchronize()
+    if flash_attention_bwd.launches != before + 2:
+        raise AssertionError(f"flash_attention_bwd {name}: not one launch a call")
+    want = flash_attention_bwd_plain(q, k, v, o, lse, do, **kw)
+    err = 0.0
+    for part, a, b, c in zip(("dq", "dk", "dv"), got, want, again):
+        if not torch.equal(a, c):
+            raise AssertionError(f"flash_attention_bwd {name}: two calls differ in {part}")
+        err = max(err, _check_close(a, b, tol, f"flash_attention_bwd {name} {kw} {part}"))
+    print(f"[kernels] flash_attention_bwd {name} {kw}: lse max |diff| {lse_err}, dq / dk / dv "
+          f"max |diff| {err}, two calls bit-equal")
+    return err, (o, lse, do)
+
+
+def _attention_lse_plain(q, k, v, kw):
+    """The rows' log-sum-exp of the plain quadratic form."""
+    from repro_torch.kernels.flash_attention import _plain
+
+    return _plain(q, k, v, kw["causal"], kw["window"], None, kw["q_offset"], True)[1]
+
+
+def phase_flash_attention_bwd(dev):
+    """flash_attention's gradient kernel (and the forward's lse) against the
+    plain versions; returns the backward's row (bf16 at the train shape)."""
+    g = torch.Generator(device=dev).manual_seed(3)
+    checked = 0
+    for dtype, tol in BWD_TOL.items():
+        for B, H, KVH, Sq, Sk, D, causal, window, q_offset in BWD_CASES:
+            q = _randn(g, (B, H, Sq, D), dtype, dev)
+            k, v = (_randn(g, (B, KVH, Sk, D), dtype, dev) for _ in range(2))
+            _bwd_case(f"{str(dtype)[6:]} {(B, H, KVH, Sq, Sk, D)}", q, k, v,
+                      dict(causal=causal, window=window, q_offset=q_offset), tol)
+            checked += 1
+    for name, B, H, KVH, Sq, Sk, D, causal, window in ZOO_BWD_CASES:
+        q = _randn(g, (B, Sq, H, D), torch.bfloat16, dev).transpose(1, 2)
+        k, v = (_randn(g, (B, Sk, KVH, D), torch.bfloat16, dev).transpose(1, 2)
+                for _ in range(2))
+        _bwd_case(f"{name} {(B, H, KVH, Sq, Sk, D)}", q, k, v,
+                  dict(causal=causal, window=window, q_offset=0), BWD_TOL[torch.bfloat16])
+        checked += 1
+        del q, k, v
+        torch.cuda.empty_cache()
+    # the train shape, in the model's layout (q, k, v and o transposed views
+    # of [B, S, heads, D]; do laid out like o, as autograd hands it over)
+    cfg = get_config(TRAIN_ARCH)
+    B, S, H, KVH, D = TRAIN_BATCH, TRAIN_SEQ, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    q = _randn(g, (B, S, H, D), torch.bfloat16, dev).transpose(1, 2)
+    k, v = (_randn(g, (B, S, KVH, D), torch.bfloat16, dev).transpose(1, 2) for _ in range(2))
+    kw = dict(causal=True, window=None, q_offset=0)
+    copies = flash_attention_bwd.copies
+    err, (o, lse, do) = _bwd_case(f"train shape {(B, H, KVH, S, S, D)}", q, k, v, kw,
+                                  BWD_TOL[torch.bfloat16])
+    if flash_attention_bwd.copies != copies:
+        raise AssertionError("flash_attention_bwd at the train shape copied an operand")
+    checked += 1
+    print(f"[kernels] flash_attention_bwd equals its plain version in {checked} cases, each "
+          f"twice bit for bit")
+    # SDPA's backward alone, on contiguous copies (a yardstick: the port
+    # never calls it)
+    qs, ks, vs = (t.contiguous().requires_grad_() for t in (q, k, v))
+    out = F.scaled_dot_product_attention(qs, ks, vs, is_causal=True, enable_gqa=True)
+    dos = do.contiguous()
+    graphed = {
+        "kernel": device_ms(lambda: flash_attention_bwd(q, k, v, o, lse, do), iters=5),
+        "plain": device_ms(lambda: flash_attention_bwd_plain(q, k, v, o, lse, do), iters=2),
+        "sdpa": time_ms(lambda: torch.autograd.grad(out, (qs, ks, vs), dos, retain_graph=True),
+                        iters=20, warmup=3),
+    }
+    print("[kernels] flash_attention_bwd ms per call (kernel and plain graph-replayed, sdpa's "
+          "backward eager on events): " + ", ".join(f"{k} {v:.6f}" for k, v in graphed.items()))
+    del out, qs, ks, vs, dos
+    # the bound: dP and S recomputed, dV, dK and dQ: 5 products of 2 D flops
+    # per visible (query, key) pair, S**2 / 2 pairs per (b, h); q, k, v, o,
+    # do and lse read once, dq, dk and dv written once
+    ops = 5 * 2 * D * (S * S // 2) * B * H
+    nbytes = 2 * (3 * q.numel() + 2 * k.numel() + 2 * v.numel() + o.numel()) + 4 * lse.numel()
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / BF16_OPS_PER_S * 1e3
+    bound_by = "bytes" if t_bytes >= t_ops else "operations"
+    print(f"[kernels] flash_attention_bwd [B {B}, H {H}, KVH {KVH}, S {S}, D {D}, bf16, causal]: "
+          f"{ops} flops -> {t_ops:.6f} ms, {nbytes} B -> {t_bytes:.6f} ms; kernel "
+          f"{graphed['kernel']:.6f} ms ({ops / graphed['kernel'] / 1e9:.1f} TFLOP/s, "
+          f"{100 * max(t_bytes, t_ops) / graphed['kernel']:.1f}% of the bound), plain "
+          f"{graphed['plain']:.6f} ms, sdpa backward {graphed['sdpa']:.6f} ms, bound "
+          f"{max(t_bytes, t_ops):.6f} ms ({bound_by})")
+    return dict(name="flash_attention_bwd", route="cuda",
+                source="src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+                replaces="src/repro/kernels/ref.py:97", launches=0, max_abs_err=err,
+                ms=graphed["kernel"], plain_ms=graphed["plain"], bound_ms=max(t_bytes, t_ops),
+                bound_by=bound_by, library_ms=graphed["sdpa"])
 
 
 def _decode_inputs(g, B, H, KVH, Sk, D, dtype, dev):
@@ -1930,6 +2116,281 @@ def phase_zoo(dev, rows):
     print(f"[zoo] phase ran {time.perf_counter() - t0:.1f} s")
 
 
+def _train_batches(cfg, B, S, steps, dev):
+    """``steps`` SyntheticLM batches of B x S tokens on ``dev``, with a
+    vision model's patches or an enc-dec model's frames (the trainer CLI's
+    shapes, `modality_stubs`) drawn in bf16 from ``default_rng(1)``."""
+    ds = SyntheticLM(vocab_size=cfg.vocab_size, seq_len=S, global_batch=B)
+    rng = np.random.default_rng(1)
+    out = []
+    for i in range(steps):
+        b = host_batch(ds, i, device=dev)
+        for name, (shape, dtype) in modality_stubs(cfg, B, S).items():
+            b[name] = torch.as_tensor(rng.standard_normal(shape).astype(np.float32),
+                                      device=dev).to(dtype)
+        out.append(b)
+    return out
+
+
+class TrainRun:
+    """What `_train` keeps of a run."""
+
+    def __init__(self):
+        self.losses = []       # per step: loss, ce, moe_aux, lr_scale (floats)
+        self.grads = {}        # step 1's gradient, leaf key -> f32 tensor on the CPU
+        self.step_s = []       # host clock around each step, synchronised
+        self.launches = []     # per step: (flash_attention, flash_attention_bwd) launches
+        self.copies = (0, 0)   # aligning copies over the run (forward, backward)
+
+
+def _train(cfg, params, opt_name, batches, *, routes=None, plain=False) -> TrainRun:
+    """AdamW (or ``opt_name``) steps at the CLI's lr from ``params`` (updated
+    in place), one a batch, with the launches of each step counted."""
+    opt = make_optimizer(opt_name, lr=3e-3)
+    state = TrainState.create(params, opt.init(params))
+    step = build_train_step(cfg, opt, routes=routes, plain=plain)
+    dev = batches[0]["tokens"].device
+    run = TrainRun()
+    copies = (flash_attention.copies, flash_attention_bwd.copies)
+    for i, batch in enumerate(batches):
+        before = (flash_attention.launches, flash_attention_bwd.launches)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss, metrics, grads = step.grads(state.params, batch)
+        if i == 0:
+            run.grads = {k: g.detach().float().to("cpu", copy=True) for k, g in tree.paths(grads)}
+        state, m = step.apply(state, loss, metrics, grads)
+        del grads, loss, metrics
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        run.step_s.append(time.perf_counter() - t0)
+        run.launches.append((flash_attention.launches - before[0],
+                             flash_attention_bwd.launches - before[1]))
+        run.losses.append({k: float(v) for k, v in m.items()})
+    run.copies = (flash_attention.copies - copies[0], flash_attention_bwd.copies - copies[1])
+    return run
+
+
+def _rel_l2(a, b) -> float:
+    return float((a - b).norm() / b.norm().clamp(min=1e-30))
+
+
+def _train_smoke_card_vs_cpu(cfg, dev):
+    """3 steps of a smoke config on the card against the same steps on the
+    CPU (which the CPU tests hold to the JAX package), the CPU run's MoE
+    choices replayed: losses and step-1 gradients within the CPU tests'
+    tolerances, and flash_attention's forward twice (remat) and its
+    backward once an attention sublayer and encoder layer a step."""
+    opt = cfg.optimizer
+    params = M.init_params(torch.Generator().manual_seed(0), cfg)
+    batches = _train_batches(cfg, TRAIN_SMOKE_BATCH, TRAIN_SMOKE_SEQ, TRAIN_SMOKE_STEPS, "cpu")
+    routes = Routes()
+    card_params = tree.map_leaves(lambda t: t.to(dev, copy=True), params)  # before the update
+    cpu = _train(cfg, params, opt, batches, routes=routes)
+    card = _train(cfg, card_params, opt, [_to(b, dev) for b in batches], routes=routes.replay())
+    loss_err = max(abs(c[k] - g[k]) for c, g in zip(cpu.losses, card.losses)
+                   for k in ("loss", "ce", "moe_aux"))
+    if loss_err > TRAIN_LOSS_TOL:
+        raise AssertionError(f"train smoke {cfg.name}: losses differ by {loss_err} > "
+                             f"{TRAIN_LOSS_TOL}: {cpu.losses} vs {card.losses}")
+    tol = TRAIN_GRAD_TOL.get(cfg.name, 5e-2)
+    errs = {k: _rel_l2(card.grads[k], cpu.grads[k]) for k in cpu.grads}
+    worst = max(errs, key=errs.get)
+    if errs[worst] > tol:
+        raise AssertionError(f"train smoke {cfg.name}: step-1 gradient of {worst} differs by "
+                             f"{errs[worst]} > {tol} (relative L2)")
+    per = _attn_counts(cfg)[0]
+    if any(n != (2 * per, per) for n in card.launches):
+        raise AssertionError(f"train smoke {cfg.name}: launches per step {card.launches}, "
+                             f"expected {(2 * per, per)}")
+    print(f"[train] smoke {cfg.name} ({opt}): card vs CPU, {TRAIN_SMOKE_STEPS} steps of "
+          f"{TRAIN_SMOKE_BATCH} x {TRAIN_SMOKE_SEQ} tokens: losses "
+          f"{[round(x['loss'], 6) for x in card.losses]}, max |diff| {loss_err}; step-1 "
+          f"gradients max relative L2 {errs[worst]} ({worst}); MoE choices replayed, "
+          f"{int(routes.flips)} of {routes.choices} would have gone otherwise; launches a step "
+          f"(forward, backward) {card.launches[0]}")
+
+
+def _cli_train(args, *, deterministic=True) -> str:
+    """The trainer CLI in a process of its own (deterministic algorithms on,
+    with the cuBLAS workspace they need); returns its output."""
+    code = ("import sys, torch\n"
+            f"torch.use_deterministic_algorithms({deterministic})\n"
+            "from repro_torch.launch.train import main\n"
+            "main(sys.argv[1:])\n")
+    env = {**os.environ, "PYTHONPATH": os.path.join(ROOT, "src"),
+           "CUBLAS_WORKSPACE_CONFIG": ":4096:8"}
+    out = subprocess.run([sys.executable, "-c", code, *args], env=env, cwd=ROOT,
+                         capture_output=True, text=True, timeout=600)
+    if out.returncode != 0:
+        raise AssertionError(f"trainer CLI {args} failed:\n{out.stdout}\n{out.stderr}")
+    return out.stdout
+
+
+def _manifest(path) -> dict:
+    with open(os.path.join(path, "manifest.json")) as f:
+        return {k: v["sha1"] for k, v in json.load(f)["arrays"].items()}
+
+
+def _train_resume(dev):
+    """The CLI on the card: 6 smoke steps straight with checkpoints every 3,
+    then from the step-3 checkpoint alone with --resume, both under
+    deterministic algorithms: the two final checkpoints must be equal, SHA1
+    for SHA1.  Two straight runs without deterministic algorithms show
+    whether the path needs them: whether they end in one checkpoint, and in
+    the deterministic runs' (torch's deterministic forms may sum in another
+    order)."""
+    import shutil
+    import tempfile
+
+    common = ["--arch", "qwen3-8b", "--smoke", "--device", dev.type, "--steps", "6",
+              "--ckpt-every", "3", "--log-every", "3"]
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as tmp:
+        straight, resumed, free, free2 = (os.path.join(tmp, n) for n in (
+            "straight", "resumed", "free", "free2"))
+        _cli_train(common + ["--ckpt-dir", straight])
+        shutil.copytree(os.path.join(straight, "step_00000003"),
+                        os.path.join(resumed, "step_00000003"))
+        with open(os.path.join(resumed, "LATEST"), "w") as f:
+            f.write("3")
+        log = _cli_train(common + ["--ckpt-dir", resumed, "--resume"])
+        if "resumed from step 3" not in log:
+            raise AssertionError(f"the trainer CLI did not resume:\n{log}")
+        want = _manifest(os.path.join(straight, "step_00000006"))
+        got = _manifest(os.path.join(resumed, "step_00000006"))
+        if got != want:
+            bad = sorted(k for k in want if got.get(k) != want[k])
+            raise AssertionError(f"resumed run differs from the straight run in {bad[:8]}")
+        free_sums = []
+        for path in (free, free2):
+            _cli_train(common + ["--ckpt-dir", path], deterministic=False)
+            free_sums.append(_manifest(os.path.join(path, "step_00000006")))
+    differ = sorted(k for k in want if free_sums[0][k] != free_sums[1][k])
+    print(f"[train] resume: the CLI's 6 smoke steps on {dev.type} and a run resumed from step 3, "
+          f"under deterministic algorithms, end in the same checkpoint, {len(want)} arrays SHA1 "
+          f"for SHA1; two runs without deterministic algorithms "
+          f"{'end in one checkpoint' if not differ else f'differ in {len(differ)} arrays'} "
+          f"{differ[:6]}, "
+          f"{'equal to' if free_sums[0] == want else 'other than'} the deterministic runs'")
+
+
+def f64_attention(q, k, v, *, causal=True, window=None, scale=None, q_offset=0):
+    """The quadratic form in float64 (causal, no window), cast to q's type;
+    differentiable.  The noise floor's attention (scripts/dense_noise_floor.py)."""
+    if window is not None or scale is not None or q_offset or not causal:
+        raise ValueError("the float64 attention covers causal attention with no window only")
+    group = q.shape[1] // k.shape[1]
+    S = q.shape[2]
+    qd = q.double() / math.sqrt(q.shape[-1])
+    kd = k.double().repeat_interleave(group, dim=1)
+    vd = v.double().repeat_interleave(group, dim=1)
+    future = torch.ones((S, S), dtype=torch.bool, device=q.device).triu(1)
+    probs = torch.softmax((qd @ kd.transpose(-1, -2)).masked_fill(future, float("-inf")), dim=-1)
+    return (probs @ vd).to(q.dtype)
+
+
+def train_cell(dev):
+    """The full-width training cell's config and batches."""
+    cfg = dataclasses.replace(get_config(TRAIN_ARCH), n_layers=TRAIN_LAYERS)
+    return cfg, _train_batches(cfg, TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, dev)
+
+
+def train_full(cfg, batches, *, attention=None, plain=False) -> TrainRun:
+    """The training cell's steps from f32 weights drawn on the card from
+    seed 0; ``attention`` replaces the plain attention of a ``plain`` run
+    (the noise floor's float64 form)."""
+    dev = batches[0]["tokens"].device
+    params = M.init_params(torch.Generator(device=dev).manual_seed(0), cfg)
+    kept = layers.flash_attention_plain
+    if attention is not None:
+        layers.flash_attention_plain = attention
+    try:
+        return _train(cfg, params, cfg.optimizer, batches, plain=plain)
+    finally:
+        layers.flash_attention_plain = kept
+
+
+def train_floor(kernels: TrainRun, plain: TrainRun, f64: TrainRun):
+    """Per step, the loss differences (kernels vs plain, plain vs float64),
+    and per leaf the step-1 gradients' relative L2 differences."""
+    loss = [(abs(a["loss"] - b["loss"]), abs(b["loss"] - c["loss"]))
+            for a, b, c in zip(kernels.losses, plain.losses, f64.losses)]
+    grads = {k: (_rel_l2(kernels.grads[k], plain.grads[k]), _rel_l2(plain.grads[k], f64.grads[k]))
+             for k in plain.grads}
+    return loss, grads
+
+
+def _train_full_width(dev):
+    """The training cell through the kernels, then with the plain attention
+    and with the plain attention in float64 (the floor); returns the
+    kernels' launches over the run."""
+    cfg, batches = train_cell(dev)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    flash_attention.launches = flash_attention_bwd.launches = 0
+    flash_attention.copies = flash_attention_bwd.copies = 0
+    kernels = train_full(cfg, batches)
+    launches = (flash_attention.launches, flash_attention_bwd.launches)
+    peak = torch.cuda.max_memory_allocated()
+    n_params = sum(g.numel() for g in kernels.grads.values())
+    if any(n != (2 * TRAIN_LAYERS, TRAIN_LAYERS) for n in kernels.launches):
+        raise AssertionError(f"training cell: launches per step {kernels.launches}, expected "
+                             f"{(2 * TRAIN_LAYERS, TRAIN_LAYERS)}")
+    if kernels.copies != (0, 0):
+        raise AssertionError(f"training cell: aligning copies {kernels.copies}")
+    if not all(math.isfinite(x["loss"]) for x in kernels.losses):
+        raise AssertionError(f"training cell: losses {kernels.losses}")
+    step_s = sum(kernels.step_s[1:]) / (TRAIN_STEPS - 1)
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    print(f"[train] {cfg.name} at full width (d_model {cfg.d_model}, vocab {cfg.vocab_size}), "
+          f"{TRAIN_LAYERS} of 36 layers, {n_params} f32 parameters, AdamW, batches of "
+          f"{TRAIN_BATCH} x {TRAIN_SEQ} tokens: {step_s * 1e3:.3f} ms a step over steps 2-"
+          f"{TRAIN_STEPS} ({tokens / step_s:.1f} tokens/s; step 1 {kernels.step_s[0] * 1e3:.3f} "
+          f"ms), peak memory {peak} B; flash_attention launches a step (forward, backward) "
+          f"{kernels.launches[0]}, aligning copies {kernels.copies}; losses "
+          f"{[x['loss'] for x in kernels.losses]}, lr scales "
+          f"{[x['lr_scale'] for x in kernels.losses]}")
+    plain = train_full(cfg, batches, plain=True)
+    plain_ms = sum(plain.step_s[1:]) * 1e3 / (TRAIN_STEPS - 1)
+    print(f"[train] the same steps with the plain attention: {plain_ms:.3f} ms a step; losses "
+          f"{[x['loss'] for x in plain.losses]}")
+    f64 = train_full(cfg, batches, plain=True, attention=f64_attention)
+    loss, grads = train_floor(kernels, plain, f64)
+    eps = float(np.finfo(np.float32).eps)
+    loss_ratio = max(a for a, _ in loss) / max(max(b for _, b in loss),
+                                                eps * kernels.losses[0]["loss"])
+    ratios = {k: a / max(b, eps) for k, (a, b) in grads.items()}
+    worst = max(ratios, key=ratios.get)
+    print(f"[train] floor (the plain attention in f32 against float64): losses differ by "
+          f"{[b for _, b in loss]}, step-1 gradients by relative L2 up to "
+          f"{max(b for _, b in grads.values())} (median "
+          f"{float(np.median([b for _, b in grads.values()]))}); the kernels against the plain "
+          f"attention: losses {[a for a, _ in loss]}, gradients up to "
+          f"{max(a for a, _ in grads.values())}; ratio to the floor: losses {loss_ratio}, "
+          f"gradients {ratios[worst]} ({worst}), limit {TRAIN_FLOOR_RATIO}")
+    if loss_ratio > TRAIN_FLOOR_RATIO or ratios[worst] > TRAIN_FLOOR_RATIO:
+        raise AssertionError(f"training cell: the kernels' run stands "
+                             f"{max(loss_ratio, ratios[worst])} times the floor from the plain "
+                             f"run (limit {TRAIN_FLOOR_RATIO})")
+    return launches
+
+
+def phase_train(dev, rows):
+    """Training: (a) every arch's smoke config on the card against the
+    CPU, (b) the trainer CLI's resume, bit for bit, (c) the full-width
+    cell against its plain run within the float64 floor."""
+    t0 = time.perf_counter()
+    for arch in ARCH_IDS:
+        _train_smoke_card_vs_cpu(get_smoke_config(arch), dev)
+    _train_resume(dev)
+    launches = _train_full_width(dev)
+    rows["flash_attention"]["launches"] += launches[0]
+    rows["flash_attention_bwd"]["launches"] = launches[1]
+    print(f"[train] phase ran {time.perf_counter() - t0:.1f} s")
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -1949,7 +2410,7 @@ def main() -> int:
     logs = build.build_all()
     for name, log in logs.items():
         print(f"[build] {name}: {log.strip()}")
-    for name in ("spray_select", "lt_encode", "link_fold"):
+    for name in ("spray_select", "lt_encode", "link_fold", "flash_attention_bwd"):
         report = ptxas_report(logs[name])
         if logs[name] == "up to date":
             print(f"[build] ptxas {name}: built by an earlier run, no report")
@@ -1961,8 +2422,9 @@ def main() -> int:
     print(f"[build] {len(logs)} kernel(s) built in {time.time() - t0:.1f} s")
     message = coded_message()
     rows = {"spray_select": phase_kernels(dev), "lt_encode": phase_lt_encode(dev, message),
-            "flash_attention": phase_flash_attention(dev), "flash_decode": phase_flash_decode(dev),
-            "link_fold": phase_link_fold(dev)}
+            "flash_attention": phase_flash_attention(dev),
+            "flash_attention_bwd": phase_flash_attention_bwd(dev),
+            "flash_decode": phase_flash_decode(dev), "link_fold": phase_link_fold(dev)}
     phase_goldens(dev)
     phase_wide(dev, rows)
     phase_fat_tree(dev, rows)
@@ -1972,6 +2434,8 @@ def main() -> int:
     phase_dense(dev, rows)
     torch.cuda.empty_cache()
     phase_zoo(dev, rows)
+    torch.cuda.empty_cache()
+    phase_train(dev, rows)
     for row in rows.values():
         if not all(math.isfinite(row[k]) for k in ("ms", "plain_ms", "bound_ms")):
             raise AssertionError(f"non-finite timing in {row}")

@@ -1,7 +1,7 @@
-"""Where the time goes in the coded, router, dense, zoo, fat-tree, job and cluster cells, on one NVIDIA card.
+"""Where the time goes in the coded, router, dense, zoo, fat-tree, job, cluster and train cells, on one NVIDIA card.
 
     python3 scripts/profile_cells.py \
-        --cell coded|router|prefill|decode|jamba|whisper|fattree|job|cluster [--steps N]
+        --cell coded|router|prefill|decode|jamba|whisper|fattree|job|cluster|train [--steps N]
 
 Runs one cell of `chip_smoke.py` under `torch.profiler` and prints the
 wall time per step, the card's busy and idle shares, the device
@@ -20,8 +20,11 @@ that many ticks, early exit off).  The job and cluster cells report per
 tick, over N runs (default 3) of one ring step as their sweeps run it
 (early exit in chunks of 16): the full-width qwen3-8b job's first step on
 `pfc_storm` under WAM (`job`), and the full-width cluster cell's first
-`rings_overlapped` round, both jobs active, under WAM (`cluster`).  The
-wide cell has its own tool, `tools/torch_profile_wide.py`.
+`rings_overlapped` round, both jobs active, under WAM (`cluster`).  A
+`train` step is one AdamW step of `chip_smoke.py`'s training cell
+(qwen3-8b at published widths, 4 of 36 layers, 4 x 2,048 tokens; default
+3, after one warm-up step).  The wide cell has its own tool,
+`tools/torch_profile_wide.py`.
 """
 from __future__ import annotations
 
@@ -42,9 +45,10 @@ from torch.profiler import ProfilerActivity, profile  # noqa: E402
 from repro_torch.train.step import build_decode_step, build_prefill_step  # noqa: E402
 
 UNIT = {"coded": "message", "router": "window", "prefill": "prefill", "decode": "step",
-        "jamba": "step", "whisper": "step", "fattree": "tick", "job": "tick", "cluster": "tick"}
+        "jamba": "step", "whisper": "step", "fattree": "tick", "job": "tick", "cluster": "tick",
+        "train": "step"}
 STEPS = {"coded": 2, "router": 50, "prefill": 3, "decode": 20, "jamba": 20, "whisper": 20,
-         "fattree": 64, "job": 3, "cluster": 3}
+         "fattree": 64, "job": 3, "cluster": 3, "train": 3}
 
 
 def _device_us(evt) -> float:
@@ -130,9 +134,24 @@ def _ring_step(cell: str, dev):
     return step
 
 
+def _train_step(dev):
+    """One AdamW step of the training cell, on its state (updated in place)."""
+    cfg, batches = cs.train_cell(dev)
+    opt = cs.make_optimizer(cfg.optimizer, lr=3e-3)
+    params = cs.M.init_params(torch.Generator(device=dev).manual_seed(0), cfg)
+    state = [cs.TrainState.create(params, opt.init(params))]
+    step = cs.build_train_step(cfg, opt)
+
+    def run():
+        state[0], _ = step(state[0], batches[int(state[0].step) % len(batches)])
+    return run
+
+
 def _step(cell: str, dev, steps: int):
     """One step of the cell, built once (for `fattree`, one run of `steps`
     ticks)."""
+    if cell == "train":
+        return _train_step(dev)
     if cell == "fattree":
         return _fat_tree_run(steps, dev)
     if cell in ("job", "cluster"):
@@ -157,7 +176,7 @@ def main() -> int:
     ap.add_argument("--cell", choices=tuple(UNIT), required=True)
     ap.add_argument("--steps", type=int, default=None,
                     help="steps to profile (default: coded 2, router 50, prefill 3, fattree 64, jamba 20, "
-                    "whisper 20, decode 20, job 3, cluster 3)")
+                    "whisper 20, decode 20, job 3, cluster 3, train 3)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("profile_cells: no CUDA device", file=sys.stderr)

@@ -6,7 +6,9 @@ never sees a JAX type.  A JAX PRNG key is a ``uint32[2]`` array.  A model's
 parameter or cache tree is a nested dict of numpy arrays (bfloat16 arrays
 included, recognised by their dtype's name).  Topologies and schedules may
 be stacked on leading sweep axes (`scenarios.stack_scenarios`), and so
-may telemetry frames.
+may telemetry frames.  Optimizer and training states (the reference's
+NamedTuples and dataclass, with numpy leaves) are read by their field
+names.
 """
 from __future__ import annotations
 
@@ -19,9 +21,13 @@ from repro_torch.net.fabric import FabricParams
 from repro_torch.net.sender import SenderParams
 from repro_torch.net.telemetry import TelemetryFrame
 from repro_torch.net.topology import EventSchedule, TopologyParams
+from repro_torch.optim.adafactor import AdafactorState
+from repro_torch.optim.adamw import AdamWState
+from repro_torch.train.state import TrainState
 
 __all__ = ["fabric_params", "topology_params", "event_schedule", "sender_params",
-           "telemetry_frame", "prng_key", "model_params", "model_cache"]
+           "telemetry_frame", "prng_key", "model_params", "model_cache", "adamw_state",
+           "adafactor_state", "train_state"]
 
 
 def _tensors(arrays: Mapping[str, np.ndarray], names, device):
@@ -101,3 +107,26 @@ def model_cache(tree: Mapping, device=None) -> dict:
     the port's, leaf for leaf: bf16 KV entries keep their bits, int8 ones
     their f32 scales; Mamba, mLSTM and sLSTM states in their dtypes."""
     return _tree(tree, device)
+
+
+def adamw_state(state, device=None) -> AdamWState:
+    """The reference's ``AdamWState`` (numpy leaves) as the port's: the
+    int32 step and the f32 moment trees ``m``, ``v``."""
+    return AdamWState(step=_leaf(state.step, device), m=_tree(state.m, device),
+                      v=_tree(state.v, device))
+
+
+def adafactor_state(state, device=None) -> AdafactorState:
+    """The reference's ``AdafactorState`` (numpy leaves) as the port's: the
+    int32 step, the row moments ``vr`` and the column moments ``vc``."""
+    return AdafactorState(step=_leaf(state.step, device), vr=_tree(state.vr, device),
+                          vc=_tree(state.vc, device))
+
+
+def train_state(state, device=None) -> TrainState:
+    """The reference's ``TrainState`` (numpy leaves; AdamW or Adafactor
+    state, told apart by its fields) as the port's."""
+    opt = state.opt_state
+    opt = adamw_state(opt, device) if hasattr(opt, "m") else adafactor_state(opt, device)
+    return TrainState(params=model_params(state.params, device), opt_state=opt,
+                      step=_leaf(state.step, device))

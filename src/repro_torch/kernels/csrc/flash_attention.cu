@@ -13,7 +13,10 @@
 //
 // with m and l the running row max and row sum of an online softmax in f32,
 // and the output rounded to bf16.  A row whose keys are all masked comes out
-// as zeros.  q . k is a bf16 x bf16 product summed in f32 (each product is
+// as zeros.  When the lse pointer is not null the kernel also writes each
+// row's natural log-sum-exp, (m + log2 l) ln 2 in the exp2 domain the kernel
+// keeps (-inf where l = 0), which the backward (flash_attention_bwd.cu)
+// reads to recompute the probabilities.  q . k is a bf16 x bf16 product summed in f32 (each product is
 // exact in f32); `scale` (with log2 e folded in, for exp2) multiplies the
 // f32 score.  The one rounding the reference does not make: p is rounded to
 // bf16 before the P . V product, whose sum is f32.
@@ -68,6 +71,9 @@ constexpr int kStages = 2;                     // K / V ring depth
 constexpr int kRowBytes = 128;                 // one swizzled row: 64 bf16
 constexpr float kMasked = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
+
+__device__ __forceinline__ float neg_inf() { return __int_as_float(0xff800000u); }
 
 template <int DP>  // head dim padded to 64, 128 or 256
 struct Tiles {
@@ -82,6 +88,7 @@ struct Tiles {
 
 struct Params {
   __nv_bfloat16* o;
+  float* lse;               // null, or f32 [B, H, Sq], contiguous
   long long o_b, o_h, o_s;  // element strides of o; its D stride is 1
   int B, KVH, group, Sq, Sk, D, n_qtiles;
   float scale_log2;         // scale * log2(e)
@@ -484,6 +491,11 @@ flash_attention_sm90(const __grid_constant__ CUtensorMap tq,
     for (int r = 0; r < 2; ++r) {
       l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
       l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+      const int row = row0 + 8 * r;
+      if (p.lse != nullptr && live && lane % 4 == 0 && row < p.Sq) {
+        p.lse[(static_cast<long long>(b) * p.KVH * p.group + h) * p.Sq + row] =
+            l[r] > 0.f ? (m[r] + log2f(l[r])) * kLn2 : neg_inf();
+      }
       l[r] = l[r] > 0.f ? l[r] : 1.f;
     }
     if (live) {
@@ -512,9 +524,9 @@ flash_attention_sm90(const __grid_constant__ CUtensorMap tq,
 
 // ---------------------------------------------------------------- host side
 template <int DP>
-int launch(const void* q, const void* k, const void* v, void* o, const long long* st, int B,
-           int H, int KVH, int Sq, int Sk, int D, float scale, int causal, int window,
-           int q_offset, cudaStream_t stream) {
+int launch(const void* q, const void* k, const void* v, void* o, float* lse,
+           const long long* st, int B, int H, int KVH, int Sq, int Sk, int D, float scale,
+           int causal, int window, int q_offset, cudaStream_t stream) {
   using T = Tiles<DP>;
   CUtensorMap tq, tk, tv;
   Params p{};
@@ -523,6 +535,7 @@ int launch(const void* q, const void* k, const void* v, void* o, const long long
   if (err == 0) err = make_map(&tv, &p.va, v, 2, B, KVH, Sk, D, st + 6, T::BK);
   if (err != 0) return err;
   p.o = static_cast<__nv_bfloat16*>(o);
+  p.lse = lse;
   p.o_b = st[9];
   p.o_h = st[10];
   p.o_s = st[11];
@@ -554,11 +567,12 @@ int launch(const void* q, const void* k, const void* v, void* o, const long long
 // q [B, H, Sq, D], k and v [B, KVH, Sk, D], o like q, all bf16, each with
 // element strides (b, head, seq) in `strides` (q, k, v, o: 12 values, host
 // memory) and a unit D stride.  q, k and v start on 16-byte boundaries and
-// their strides are multiples of 8 elements (TMA's rule).  window <= 0 means
-// no window.  Returns 0, a CUDA error code, or 1001 (no driver entry point),
-// 1002 (misaligned operand), 1100 + a CUresult (tensor map refused).
+// their strides are multiples of 8 elements (TMA's rule).  lse is null or
+// f32 [B, H, Sq], contiguous.  window <= 0 means no window.  Returns 0, a
+// CUDA error code, or 1001 (no driver entry point), 1002 (misaligned
+// operand), 1100 + a CUresult (tensor map refused).
 extern "C" int flash_attention_launch(const void* q, const void* k, const void* v, void* o,
-                                      int B, int H, int KVH, int Sq, int Sk, int D,
+                                      void* lse, int B, int H, int KVH, int Sq, int Sk, int D,
                                       const long long* strides, float scale, int causal,
                                       int window, int q_offset, void* stream) {
   if (B < 1 || H < 1 || KVH < 1 || H % KVH != 0 || Sq < 1 || Sk < 1 || D < 1 || D > 256) {
@@ -566,5 +580,6 @@ extern "C" int flash_attention_launch(const void* q, const void* k, const void* 
   }
   const auto s = static_cast<cudaStream_t>(stream);
   auto run = D <= 64 ? launch<64> : D <= 128 ? launch<128> : launch<256>;
-  return run(q, k, v, o, strides, B, H, KVH, Sq, Sk, D, scale, causal, window, q_offset, s);
+  return run(q, k, v, o, static_cast<float*>(lse), strides, B, H, KVH, Sq, Sk, D, scale,
+             causal, window, q_offset, s);
 }

@@ -15,7 +15,9 @@
 //
 // with m and l the running row max and row sum of an online softmax in
 // f32, as the TPU kernel keeps them.  A row whose keys are all masked comes
-// out as zeros.
+// out as zeros.  When `lse` is not null the kernel also writes each row's
+// log-sum-exp, m + log(l) (-inf where l = 0), which the backward
+// (flash_attention_bwd.cu) reads to recompute the probabilities.
 //
 // Design: one block of 256 threads per (tile of 64 query rows, b * H + h).
 // The block keeps its scaled query tile in shared memory and walks the key
@@ -43,6 +45,8 @@ constexpr int kRows = 4;       // query rows per thread
 constexpr int kCols = kBK / 16;  // scored keys per thread and tile
 constexpr float kMasked = -1e30f;
 
+__device__ __forceinline__ float neg_inf() { return __int_as_float(0xff800000u); }
+
 // element strides of a [B, heads, S, D] operand; the D stride is 1
 struct Strides {
   long long b, h, s;
@@ -51,7 +55,8 @@ struct Strides {
 template <int NJ>  // NJ * 16 >= D output columns per row
 __global__ void __launch_bounds__(kThreads)
 flash_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                       const float* __restrict__ v, float* __restrict__ o, Strides qs,
+                       const float* __restrict__ v, float* __restrict__ o,
+                       float* __restrict__ lse, Strides qs,
                        Strides ks, Strides vs, Strides os, int H, int group, int Sq,
                        int Sk, int D, float scale, int causal, int window,
                        int q_offset) {
@@ -190,6 +195,10 @@ flash_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
     const int row = q0 + ty * kRows + i;
     if (row >= Sq) continue;
     const float denom = l_i[i] > 0.f ? l_i[i] : 1.f;
+    if (lse != nullptr && tx == 0) {
+      lse[static_cast<long long>(bh) * Sq + row] =
+          l_i[i] > 0.f ? m_i[i] + logf(l_i[i]) : neg_inf();
+    }
 #pragma unroll
     for (int j = 0; j < NJ; ++j) {
       const int col = tx + 16 * j;
@@ -204,7 +213,8 @@ size_t smem_bytes(int D) {
 }
 
 template <int NJ>
-int launch(const void* q, const void* k, const void* v, void* o, const long long* st,
+int launch(const void* q, const void* k, const void* v, void* o, float* lse,
+           const long long* st,
            int B, int H, int KVH, int Sq, int Sk, int D, float scale, int causal,
            int window, int q_offset, cudaStream_t stream) {
   const size_t smem = smem_bytes(D);
@@ -218,7 +228,8 @@ int launch(const void* q, const void* k, const void* v, void* o, const long long
   dim3 grid(static_cast<unsigned>((Sq + kBQ - 1) / kBQ), static_cast<unsigned>(B * H));
   kernel<<<grid, kThreads, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(o), qs, ks, vs, os, H, H / KVH, Sq,
+      static_cast<const float*>(v), static_cast<float*>(o), lse, qs, ks, vs, os, H, H / KVH,
+      Sq,
       Sk, D, scale, causal, window, q_offset);
   return static_cast<int>(cudaGetLastError());
 }
@@ -227,10 +238,11 @@ int launch(const void* q, const void* k, const void* v, void* o, const long long
 
 // q [B, H, Sq, D], k and v [B, KVH, Sk, D], o like q, all f32, each with
 // element strides (b, head, seq) in `strides` (q, k, v, o: 12 values, host
-// memory) and a unit D stride.  window <= 0 means no window.  Returns the
-// CUDA error code (0 = ok).
+// memory) and a unit D stride; lse null or f32 [B, H, Sq], contiguous.
+// window <= 0 means no window.  Returns the CUDA error code (0 = ok).
 extern "C" int flash_attention_f32_launch(const void* q, const void* k, const void* v,
-                                          void* o, int B, int H, int KVH, int Sq, int Sk,
+                                          void* o, void* lse, int B, int H, int KVH, int Sq,
+                                          int Sk,
                                           int D, const long long* strides, float scale,
                                           int causal, int window, int q_offset,
                                           void* stream) {
@@ -240,5 +252,6 @@ extern "C" int flash_attention_f32_launch(const void* q, const void* k, const vo
   }
   const auto s = static_cast<cudaStream_t>(stream);
   auto run = D <= 16 ? launch<1> : D <= 64 ? launch<4> : D <= 128 ? launch<8> : launch<16>;
-  return run(q, k, v, o, strides, B, H, KVH, Sq, Sk, D, scale, causal, window, q_offset, s);
+  return run(q, k, v, o, static_cast<float*>(lse), strides, B, H, KVH, Sq, Sk, D, scale,
+             causal, window, q_offset, s);
 }

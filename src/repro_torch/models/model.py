@@ -1,6 +1,7 @@
 """Top-level model API of the port, for all ten architectures.
 
   init_params / compute_params   - parameter tree, and its bf16 compute copy
+  train_loss                     - next-token cross-entropy (+ MoE aux), differentiable
   make_cache                     - zeroed caches and states for serving
   prefill / decode_step          - serving paths; caches updated in place
 
@@ -9,7 +10,7 @@ MoE, hybrid, SSM, VLM) and the encoder-decoder (audio).  Modality
 frontends are stubs, as there: the batch carries pre-computed patch or
 frame embeddings, and a small learned projector maps them into the
 backbone (llava's two-layer gelu MLP; whisper's frame projection, a
-sinusoidal signal and a non-causal encoder).  `train_loss` is not ported.
+sinusoidal signal and a non-causal encoder).
 """
 from __future__ import annotations
 
@@ -17,6 +18,7 @@ from typing import Dict
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig, LayerSpec
 from repro_torch.device import resolve_device
@@ -25,12 +27,12 @@ from repro_torch.models.transformer import (
     init_stack,
     init_stack_cache,
     run_stack_decode,
-    run_stack_encode,
     run_stack_prefill,
+    run_stack_train,
 )
 
-__all__ = ["ENC_PERIOD", "init_params", "compute_params", "make_cache", "prefill",
-           "decode_step"]
+__all__ = ["ENC_PERIOD", "init_params", "compute_params", "train_loss", "make_cache",
+           "prefill", "decode_step"]
 
 # whisper-style encoder period: non-causal self-attention + MLP
 ENC_PERIOD = (LayerSpec("attn", "mlp"),)
@@ -107,7 +109,11 @@ def make_cache(cfg: ArchConfig, batch: int, seq_len: int, *, device="cuda") -> d
 
 
 def _embed_tokens(p: dict, tokens: torch.Tensor) -> torch.Tensor:
-    return p["embed"][tokens].to(COMPUTE_DTYPE)
+    """The tokens' rows of the table, in bf16.  `F.embedding`, whose
+    gradient sums a row's tokens in order on the CPU and the card (an
+    indexing gradient, ``index_put_`` with accumulation, sums them in an
+    order that may change from run to run on the CPU)."""
+    return F.embedding(tokens, p["embed"]).to(COMPUTE_DTYPE)
 
 
 def _unembed(p: dict, cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
@@ -132,17 +138,21 @@ def _positions(x: torch.Tensor) -> torch.Tensor:
     return torch.arange(x.shape[1], device=x.device).expand(x.shape[:2])
 
 
-def _encode(p: dict, cfg: ArchConfig, frames: torch.Tensor, *, plain: bool) -> torch.Tensor:
-    """Whisper's encoder over stub frame embeddings [B, S_enc, D]."""
+def _encode(p: dict, cfg: ArchConfig, frames: torch.Tensor, *, plain: bool,
+            remat: bool = False) -> torch.Tensor:
+    """Whisper's encoder over stub frame embeddings [B, S_enc, D]: the
+    stack of `ENC_PERIOD` run non-causal (RoPE applied, as the reference's)."""
     enc = p["encoder"]
     x = matmul(frames.to(COMPUTE_DTYPE), enc["frontend_proj"].to(COMPUTE_DTYPE))
     pos = _positions(frames)
     x = x + _sinusoidal(pos, cfg.d_model).to(COMPUTE_DTYPE)
-    x = run_stack_encode(enc["layers"], cfg, x, pos, ENC_PERIOD, plain=plain)
+    x, _ = run_stack_train(enc["layers"], cfg, x, pos, causal=False, remat=remat, plain=plain,
+                           period=ENC_PERIOD)
     return rms_norm(x, enc["final_norm"], cfg.norm_eps)
 
 
-def _backbone_inputs(p: dict, cfg: ArchConfig, batch: Dict[str, torch.Tensor], *, plain: bool):
+def _backbone_inputs(p: dict, cfg: ArchConfig, batch: Dict[str, torch.Tensor], *, plain: bool,
+                     remat: bool = False):
     """-> (x [B, S, D], positions [B, S], encoder output or None); a vision
     model's S counts its patch prefix."""
     x = _embed_tokens(p, batch["tokens"])
@@ -152,10 +162,41 @@ def _backbone_inputs(p: dict, cfg: ArchConfig, batch: Dict[str, torch.Tensor], *
         proj = matmul(gelu(matmul(batch["patches"].to(COMPUTE_DTYPE), w1)), w2)
         x = torch.cat([proj, x], dim=1)
     if cfg.is_encdec:
-        enc_out = _encode(p, cfg, batch["frames"], plain=plain)
+        enc_out = _encode(p, cfg, batch["frames"], plain=plain, remat=remat)
         # whisper decoder: fixed sinusoidal positions (RoPE too, as the reference)
         x = x + _sinusoidal(_positions(x), cfg.d_model).to(COMPUTE_DTYPE)
     return x, _positions(x), enc_out
+
+
+def train_loss(p: dict, cfg: ArchConfig, batch: Dict[str, torch.Tensor], *,
+               aux_weight: float = 0.01, remat: bool = True, plain: bool = False,
+               routes=None):
+    """Next-token cross-entropy over the text positions, plus the MoE
+    sublayers' load-balance loss: ``(loss, {"ce", "moe_aux"})``, f32
+    scalars, differentiable in ``p``.  As the reference's `train_loss`: a
+    vision model's patch prefix is not scored, the logits are f32 (the
+    head in f32 over the weights it is given), and the aux term is
+    ``aux_weight * aux`` over the MoE sublayer count.  ``remat``
+    checkpoints each sublayer (`run_stack_train`); ``plain`` runs the
+    attention kernels' plain versions; ``routes`` records or replays the
+    MoE choices (`moe.Routes`)."""
+    if routes is not None:
+        routes.begin_pass()
+    x, positions, enc_out = _backbone_inputs(p, cfg, batch, plain=plain, remat=remat)
+    x, aux = run_stack_train(p["layers"], cfg, x, positions, encoder_out=enc_out, remat=remat,
+                             plain=plain, routes=routes)
+    logits = _unembed(p, cfg, x)                       # [B, S, V] f32
+    tokens = batch["tokens"]
+    T = tokens.shape[1]
+    prefix = x.shape[1] - T                            # vlm patch prefix
+    # next-token targets within the text region, every one of them scored
+    lg = logits[:, prefix:prefix + T - 1]
+    lse = torch.logsumexp(lg, dim=-1)
+    gold = lg.gather(-1, tokens[:, 1:, None].long())[..., 0]
+    ce = (lse - gold).sum() / max(lse.numel(), 1)
+    n_moe = sum(1 for s in cfg.period if s.ffn == "moe")
+    loss = ce + aux_weight * aux / max(n_moe * cfg.n_periods, 1) if n_moe else ce
+    return loss, {"ce": ce, "moe_aux": aux}
 
 
 def prefill(p: dict, cfg: ArchConfig, batch: Dict[str, torch.Tensor], cache: dict, *,

@@ -24,6 +24,7 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models.layers import COMPUTE_DTYPE, _normal, gelu, matmul, silu
@@ -74,37 +75,63 @@ class Routes:
     a whole expert.  The first run records each MoE call's choices in
     order; `replay` rewinds, and the second run (on any device) then takes
     the recorded choices with its own gates, and counts the calls' choices
-    that differ from its own (`flips`, out of `choices`)."""
+    that differ from its own (`flips`, out of `choices`).
+
+    Training recomputes a sublayer's forward in its backward (remat), so
+    there a call names its site (`begin_pass` counts the forward passes,
+    the stack names the period and sublayer): a site's first call records
+    or replays, and a recomputation takes what the site holds."""
 
     def __init__(self):
         self.calls: list = []
+        self.sites: dict = {}
         self.replaying = False
         self.flips = self.choices = 0
         self._next = 0
+        self._pass = -1
+        self._seen: set = set()
 
     def replay(self) -> "Routes":
         self.replaying, self._next, self.flips, self.choices = True, 0, 0, 0
+        self._pass = -1
+        self._seen = set()
         return self
 
-    def take(self, own: torch.Tensor) -> torch.Tensor:
+    def begin_pass(self) -> None:
+        """A new forward pass (a training step's loss, or a microbatch's)."""
+        self._pass += 1
+
+    def _count(self, own: torch.Tensor, chosen: torch.Tensor) -> None:
+        # a device count: read once the run ends, so that no call waits
+        differ = (own.sort(dim=-1).values != chosen.sort(dim=-1).values).any(-1)
+        self.flips = self.flips + differ.sum()
+        self.choices += own.shape[0]
+
+    def take(self, own: torch.Tensor, site=None) -> torch.Tensor:
         """The choice (indices) of this call: ``own``, recorded, or the
-        recorded one when replaying."""
+        recorded one when replaying; by ``site`` when one is named."""
+        if site is not None:
+            key = (self._pass, *site)
+            if not self.replaying:
+                return self.sites.setdefault(key, own)
+            chosen = self.sites[key].to(own.device)
+            if key not in self._seen:
+                self._seen.add(key)
+                self._count(own, chosen)
+            return chosen
         if not self.replaying:
             self.calls.append(own)
             return own
         chosen = self.calls[self._next].to(own.device)
         self._next += 1
-        # a device count: read once the run ends, so that no call waits
-        differ = (own.sort(dim=-1).values != chosen.sort(dim=-1).values).any(-1)
-        self.flips = self.flips + differ.sum()
-        self.choices += own.shape[0]
+        self._count(own, chosen)
         return chosen
 
 
-def moe(p: dict, cfg: ArchConfig, x: torch.Tensor, routes: Routes | None = None):
+def moe(p: dict, cfg: ArchConfig, x: torch.Tensor, routes: Routes | None = None, site=None):
     """x: [B, S, D] bf16 -> (y [B, S, D] bf16, aux f32 scalar).  ``routes``
     records or replays the tokens' expert choices and the experts' token
-    choices (`Routes`)."""
+    choices (`Routes`), at ``site`` when the caller names one (training)."""
     B, S, D = x.shape
     E, K = cfg.moe_experts, cfg.moe_top_k
     T = B * S
@@ -112,7 +139,7 @@ def moe(p: dict, cfg: ArchConfig, x: torch.Tensor, routes: Routes | None = None)
     probs = torch.softmax(xt.float() @ p["router"].float(), dim=-1)   # [T, E]
     top_w, top_ids = _top(probs, K)                                    # [T, K]
     if routes is not None:
-        top_ids = routes.take(top_ids)
+        top_ids = routes.take(top_ids, None if site is None else (*site, "tokens"))
         top_w = probs.gather(1, top_ids)
     top_w = top_w / top_w.sum(dim=-1, keepdim=True)
     tok_gate = torch.zeros((T, E), dtype=torch.float32, device=x.device)
@@ -127,11 +154,12 @@ def moe(p: dict, cfg: ArchConfig, x: torch.Tensor, routes: Routes | None = None)
     C = capacity(cfg, T)
     gate_ec, idx_ec = _top(tok_gate.T, C)                              # [E, C]
     if routes is not None:
-        idx_ec = routes.take(idx_ec)
+        idx_ec = routes.take(idx_ec, None if site is None else (*site, "experts"))
         gate_ec = tok_gate.T.gather(1, idx_ec)
     gate_ec = torch.where(gate_ec > 0, gate_ec, 0.0)
 
-    xe = xt[idx_ec]                                                    # [E, C, D]
+    # gathers by `F.embedding`: its gradient sums in order (`model._embed_tokens`)
+    xe = F.embedding(idx_ec, xt)                                       # [E, C, D]
     if "w_gate" in p:
         h = silu(matmul(xe, _cast(p["w_gate"]))) * matmul(xe, _cast(p["w_up"]))
     else:
@@ -146,7 +174,7 @@ def moe(p: dict, cfg: ArchConfig, x: torch.Tensor, routes: Routes | None = None)
     taken = slot.gather(0, experts.T).T                                # [T, K]
     rows = torch.where(taken >= 0, experts * C + taken, E * C)         # E * C: a zero row
     ye_flat = torch.cat([ye.reshape(E * C, D), ye.new_zeros((1, D))])
-    parts = ye_flat[rows]                                              # [T, K, D]
+    parts = F.embedding(rows, ye_flat)                                 # [T, K, D]
     y = parts[:, 0]
     for j in range(1, K):
         y = y + parts[:, j]

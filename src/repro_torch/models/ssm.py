@@ -1,10 +1,12 @@
 """State-space and recurrent blocks: the port of the JAX package's
 `models/ssm.py`, Mamba (jamba) and xLSTM's mLSTM and sLSTM (xlstm-350m).
 
-Serving only: a full-sequence prefill that returns the final recurrent
-state, and the one-token decode update.  The reference's time-chunked
-gradient checkpointing (`chunked_scan`) exists for gradients and has no
-counterpart here.
+A full-sequence form (prefill, which returns the final recurrent state;
+training takes its output) and the one-token decode update.  Every op is
+out of place, so autograd differentiates the full-sequence form;
+the scans are Python loops over time, and their backward keeps every
+step's state.  The reference's time-chunked gradient checkpointing
+(`chunked_scan`) is a memory knob that this port leaves out (ROADMAP).
 
 Scan form.  The reference scans Mamba with an ``associative_scan`` inside
 each 64-step chunk, which has its own f32 order.  The port scans every
@@ -144,12 +146,13 @@ def mamba_prefill(p: dict, cfg: ArchConfig, x: torch.Tensor):
         sl = slice(s0, s0 + chunk)
         da = torch.exp(dt[:, sl, :, None] * a)                          # [B, c, I, N]
         db = xdt[:, sl, :, None] * bmat[:, sl, None, :]
-        hs = torch.empty_like(da)
+        hs = []
         for t in range(chunk):
-            h = torch.addcmul(db[:, t], da[:, t], h, out=hs[:, t])
-        ys.append(torch.einsum("bcin,bcn->bci", hs, cmat[:, sl]))
+            h = torch.addcmul(db[:, t], da[:, t], h)
+            hs.append(h)
+        ys.append(torch.einsum("bcin,bcn->bci", torch.stack(hs, dim=1), cmat[:, sl]))
     y = _mamba_out(p, torch.cat(ys, dim=1), xc32, z)
-    return y, {"h": h.clone(), "conv": conv_carry}
+    return y, {"h": h, "conv": conv_carry}
 
 
 def mamba_decode(p: dict, cfg: ArchConfig, x: torch.Tensor, state: dict):

@@ -8,7 +8,10 @@ cross-attention + MLP; xLSTM: mLSTM, sLSTM); period parameters are stacked
 on a leading axis, and a Python loop over that axis takes the place of the
 reference's ``lax.scan``.  Three modes share the parameters:
 
-* encode  - a full sequence without caches (whisper's encoder, non-causal);
+* train   - a full sequence without caches, differentiable, each sublayer
+            checkpointed (recomputed in the backward) as the reference's
+            ``jax.checkpoint`` per sublayer; returns the MoE aux loss too
+            (whisper's encoder runs it non-causal);
 * prefill - the full prompt, filling every sublayer's cache or state;
 * decode  - one token against the (ring-buffer) KV caches and states.
 
@@ -24,11 +27,16 @@ The residual stream is bf16, but a norm reads the residual sum before it
 in f32 when both lie in one period: the reference's compiled program (XLA
 fuses the bf16 add into the norm's f32 input) keeps that sum unrounded,
 and its scan carries the period's last sum rounded (measured bit for bit
-on the CPU).
+on the CPU).  Training keeps the same rounding: the reference's forward
+inlines each checkpointed sublayer, so its fusions are the prefill's
+(measured against the jitted reference on the CPU: with every
+sublayer's output rounded instead, whisper's loss moves 40x and jamba's 2x
+further from it, and jamba's and xlstm's gradients twice as far).
 """
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig, LayerSpec
 from repro_torch.models import moe as moe_mod
@@ -48,7 +56,7 @@ from repro_torch.models.layers import (
 
 __all__ = [
     "init_stack",
-    "run_stack_encode",
+    "run_stack_train",
     "run_stack_prefill",
     "run_stack_decode",
     "init_stack_cache",
@@ -148,23 +156,25 @@ def init_stack_cache(cfg: ArchConfig, batch: int, seq_len: int, device, enc_len:
 # forward modes
 # ---------------------------------------------------------------------------
 def _ffn_apply(p: dict, cfg: ArchConfig, spec: LayerSpec, x_sum: torch.Tensor, *,
-               last: bool, routes=None) -> torch.Tensor:
+               last: bool, routes=None, site=None):
     """Post-mixer FFN with residual.  ``x_sum`` is the mixer's residual sum
     in f32: rounded to bf16 for the stream, unrounded for the norm.  Returns
-    the new residual sum, in f32 for the next sublayer's norm, or rounded
-    to bf16 for the period's ``last`` sublayer (the reference's scan carries
-    it in bf16).  The MoE's aux loss is a training term, not returned."""
+    (the new residual sum, the MoE's aux loss or None): the sum in f32 for
+    the next sublayer's norm, or rounded to bf16 for the period's ``last``
+    sublayer (the reference's scan carries it in bf16).  ``site`` names a
+    training call's MoE site (`moe.Routes`)."""
     x = x_sum.to(COMPUTE_DTYPE)
     if spec.ffn == "none":
-        return x if last else x_sum
+        return (x if last else x_sum), None
     h = rms_norm(x_sum, p["norm2"], cfg.norm_eps).to(COMPUTE_DTYPE)
+    aux = None
     if spec.ffn == "moe":
-        y, _ = moe_mod.moe(p["ffn"], cfg, h, routes)
+        y, aux = moe_mod.moe(p["ffn"], cfg, h, routes, site)
         if "ffn_dense" in p:
             y = y + mlp(p["ffn_dense"], cfg, h)
     else:
         y = mlp(p["ffn"], cfg, h)
-    return x + y if last else x.float() + y.float()
+    return (x + y if last else x.float() + y.float()), aux
 
 
 def _encoder_kv(p: dict, enc_out: torch.Tensor):
@@ -173,21 +183,65 @@ def _encoder_kv(p: dict, enc_out: torch.Tensor):
     return _project(enc_out, p["wk"]), _project(enc_out, p["wv"])
 
 
-def run_stack_encode(params: dict, cfg: ArchConfig, x: torch.Tensor, positions: torch.Tensor,
-                     period, *, plain: bool = False) -> torch.Tensor:
-    """A full sequence through a stack of self-attention sublayers without
-    caches, non-causal (the reference's ``run_stack_train(..., causal=False)``
-    for whisper's encoder; RoPE is applied, as there)."""
-    period = _periods(cfg, period, None)[0]
-    for n in range(params["sub0"]["norm1"].shape[0]):
-        p_n = _index(params, n)
+def _unstack(tree, n: int) -> list:
+    """A stacked tree as ``n`` per-period trees (`torch.unbind`, whose
+    backward stacks the periods' gradients once)."""
+    if isinstance(tree, dict):
+        parts = {k: _unstack(v, n) for k, v in tree.items()}
+        return [{k: v[i] for k, v in parts.items()} for i in range(n)]
+    return list(tree.unbind(0))
+
+
+def _mixer_train(p, cfg: ArchConfig, spec: LayerSpec, x, positions, enc_out, *, causal,
+                 plain):
+    """The mixer of a full sequence without caches; ``x`` is the residual
+    stream, bf16 or a period's f32 sum.  Returns the residual sum in f32."""
+    h = rms_norm(x, p["norm1"], cfg.norm_eps).to(COMPUTE_DTYPE)
+    if spec.kind == "attn":
+        y, _, _ = attention(p["mixer"], cfg, h, positions, causal=causal, plain=plain)
+    elif spec.kind == "xattn":
+        y, _, _ = attention(p["mixer"], cfg, h, positions, rotary=False,
+                            kv=_encoder_kv(p["mixer"], enc_out), plain=plain)
+    else:
+        y = getattr(ssm, f"{spec.kind}_prefill")(p["mixer"], cfg, h)[0]
+    return x.to(COMPUTE_DTYPE).float() + y.float()
+
+
+def run_stack_train(params: dict, cfg: ArchConfig, x: torch.Tensor, positions: torch.Tensor,
+                    encoder_out: torch.Tensor | None = None, causal: bool = True,
+                    remat: bool = True, remat_policy=None, plain: bool = False, *,
+                    period=None, routes=None) -> tuple[torch.Tensor, torch.Tensor]:
+    """A full sequence through the stack, differentiable: (x bf16 [B, S,
+    D], the MoE sublayers' aux losses summed, f32); the residual sum inside
+    a period stays f32, as in `run_stack_prefill`.  With ``remat`` each
+    sublayer runs under `torch.utils.checkpoint` (non-reentrant): its
+    activations are recomputed in the backward, so the attention kernel's
+    forward runs twice a step.  ``period`` defaults to the config's
+    (whisper's encoder passes its own, with ``causal=False``); ``routes``
+    records or replays the MoE choices.  ``remat_policy="save_ffn"`` (keep
+    the FFN's products) is not ported (ROADMAP)."""
+    if remat_policy is not None:
+        raise NotImplementedError(f"remat_policy={remat_policy!r} is not ported (ROADMAP, "
+                                  "queue 1, item 1 (b))")
+    period = period or cfg.period
+    for spec in period:
+        _check_spec(spec)
+    n_p = params["sub0"]["norm1"].shape[0]
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for n, p_n in enumerate(_unstack(params, n_p)):
         for i, spec in enumerate(period):
-            p = p_n[f"sub{i}"]
-            h = rms_norm(x, p["norm1"], cfg.norm_eps).to(COMPUTE_DTYPE)
-            y, _, _ = attention(p["mixer"], cfg, h, positions, causal=False, plain=plain)
-            x = _ffn_apply(p, cfg, spec, x.to(COMPUTE_DTYPE).float() + y.float(),
-                           last=i == len(period) - 1)
-    return x
+            def run(p, xx, spec=spec, last=i == len(period) - 1, site=(n, i)):
+                s = _mixer_train(p, cfg, spec, xx, positions, encoder_out, causal=causal,
+                                 plain=plain)
+                out, a = _ffn_apply(p, cfg, spec, s, last=last, routes=routes, site=site)
+                return out, (torch.zeros_like(aux) if a is None else a)
+
+            if remat:
+                x, a = checkpoint(run, p_n[f"sub{i}"], x, use_reentrant=False)
+            else:
+                x, a = run(p_n[f"sub{i}"], x)
+            aux = aux + a
+    return x, aux
 
 
 def _write_kv(cfg: ArchConfig, cache: dict, k: torch.Tensor, v: torch.Tensor) -> None:
@@ -260,8 +314,8 @@ def run_stack_prefill(params: dict, cfg: ArchConfig, x: torch.Tensor, positions:
         for i, spec in enumerate(period):
             x = _mixer_prefill(p_n[f"sub{i}"], cfg, spec, x, positions, encoder_out,
                                c_n[f"sub{i}"], plain=plain)
-            x = _ffn_apply(p_n[f"sub{i}"], cfg, spec, x, last=i == len(period) - 1,
-                           routes=routes)
+            x, _ = _ffn_apply(p_n[f"sub{i}"], cfg, spec, x, last=i == len(period) - 1,
+                              routes=routes)
     return x, cache
 
 
@@ -290,6 +344,6 @@ def run_stack_decode(params: dict, cfg: ArchConfig, x: torch.Tensor, pos: torch.
         p_n, c_n = _index(params, n), _index(cache, n)
         for i, spec in enumerate(period):
             x = _mixer_decode(p_n[f"sub{i}"], cfg, spec, x, pos, c_n[f"sub{i}"], plain=plain)
-            x = _ffn_apply(p_n[f"sub{i}"], cfg, spec, x, last=i == len(period) - 1,
-                           routes=routes)
+            x, _ = _ffn_apply(p_n[f"sub{i}"], cfg, spec, x, last=i == len(period) - 1,
+                              routes=routes)
     return x, cache

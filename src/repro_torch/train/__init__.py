@@ -1,1 +1,2 @@
-"""Step builders of the port (serving steps only, for now)."""
+"""Training state and step builders of the port: the train step (loss,
+gradient, optimizer update) and the serving steps."""

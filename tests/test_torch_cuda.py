@@ -435,6 +435,90 @@ def test_flash_attention_strided_head_dim(cuda, dtype):
                                atol=tol, rtol=tol)
 
 
+# flash_attention's gradient: the forward cases above, whisper's non-causal
+# encoder and cross-attention (D 64, 1,500 keys), starcoder2's 4,096 window,
+# arctic's group of 7, a group of 7 at D 20, and rows that see no key
+BWD_CASES = [
+    (2, 4, 2, 256, 256, 64, True, None, 0), (1, 8, 8, 128, 128, 128, False, None, 0),
+    (2, 4, 1, 256, 256, 64, True, 64, 0), (1, 2, 2, 64, 128, 32, True, None, 64),
+    (1, 8, 2, 37, 53, 120, True, None, 16), (2, 4, 2, 48, 48, 16, True, 32, 0),
+    (1, 2, 1, 16, 16, 16, True, None, -8), (1, 2, 1, 70, 70, 256, True, 20, 0),
+    (1, 4, 2, 200, 333, 128, True, None, 133), (1, 2, 1, 100, 1000, 256, False, None, 0),
+    (1, 4, 4, 300, 1500, 64, False, None, 0), (1, 4, 1, 600, 600, 128, True, 256, 0),
+    (1, 14, 2, 100, 100, 20, True, None, 0), (1, 7, 1, 96, 96, 128, True, None, 0)]
+BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+
+
+def _bwd_inputs(g, B, H, KVH, Sq, Sk, D, dtype, dev, **kw):
+    from repro_torch.kernels.flash_attention import flash_attention_with_lse
+
+    q, k, v = (torch.randn(shape, generator=g, device=dev).to(dtype)
+               for shape in ((B, H, Sq, D), (B, KVH, Sk, D), (B, KVH, Sk, D)))
+    o, lse = flash_attention_with_lse(q, k, v, **kw)
+    do = torch.randn((B, H, Sq, D), generator=g, device=dev).to(dtype)
+    return q, k, v, o, lse, do
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("B,H,KVH,Sq,Sk,D,causal,window,q_offset", BWD_CASES)
+def test_flash_attention_bwd_kernel_matches_plain(cuda, B, H, KVH, Sq, Sk, D, causal, window,
+                                                  q_offset, dtype):
+    """The forward's lse against the plain version's (its output bit-equal
+    to the call without lse), then the backward kernel against
+    `flash_attention_bwd_plain` on the same inputs: one launch a call, and
+    two calls give the same bits."""
+    from repro_torch.kernels import flash_attention as fa
+
+    kw = dict(causal=causal, window=window, q_offset=q_offset)
+    g = torch.Generator(device=cuda).manual_seed(Sq * Sk + D + H)
+    q, k, v, o, lse, do = _bwd_inputs(g, B, H, KVH, Sq, Sk, D, dtype, cuda, **kw)
+    assert torch.equal(o, fa.flash_attention(q, k, v, **kw))
+    want_lse = fa._plain(q, k, v, causal, window, None, q_offset, True)[1]
+    assert torch.equal(torch.isinf(lse), torch.isinf(want_lse))
+    fin = torch.isfinite(want_lse)
+    torch.testing.assert_close(lse[fin], want_lse[fin], atol=1e-4, rtol=1e-5)
+    before = fa.flash_attention_bwd.launches
+    got = fa.flash_attention_bwd(q, k, v, o, lse, do, **kw)
+    again = fa.flash_attention_bwd(q, k, v, o, lse, do, **kw)
+    assert fa.flash_attention_bwd.launches == before + 2
+    want = fa.flash_attention_bwd_plain(q, k, v, o, lse, do, **kw)
+    tol = BWD_TOL[dtype]
+    for name, a, b, c in zip(("dq", "dk", "dv"), got, want, again):
+        assert a.dtype == dtype and a.shape == b.shape, name
+        assert torch.equal(a, c), f"{name}: two calls differ"
+        torch.testing.assert_close(a.float(), b.float(), atol=tol, rtol=tol, msg=name)
+
+
+@pytest.mark.cuda
+def test_flash_attention_autograd_goes_through_the_kernels(cuda):
+    """Under autograd the model's layout (transposed [B, S, heads, D]
+    views, bf16) runs the forward with lse and the backward kernel, no
+    aligning copy, and the gradients agree with autograd of the plain
+    version; without grad the call saves nothing."""
+    from repro_torch.kernels import flash_attention as fa
+
+    g = torch.Generator(device=cuda).manual_seed(7)
+    B, S, H, KVH, D = 2, 256, 8, 2, 128
+    q, k, v = (torch.randn((B, S, h, D), generator=g, device=cuda).bfloat16().requires_grad_()
+               for h in (H, KVH, KVH))
+    do = torch.randn((B, S, H, D), generator=g, device=cuda).bfloat16()
+    launches = (fa.flash_attention.launches, fa.flash_attention_bwd.launches)
+    copies = (fa.flash_attention.copies, fa.flash_attention_bwd.copies)
+    out = fa.flash_attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2))
+    got = torch.autograd.grad(out.transpose(1, 2), (q, k, v), do)
+    assert (fa.flash_attention.launches, fa.flash_attention_bwd.launches) == (
+        launches[0] + 1, launches[1] + 1)
+    assert (fa.flash_attention.copies, fa.flash_attention_bwd.copies) == copies
+    ref = fa.flash_attention_plain(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2))
+    want = torch.autograd.grad(ref.transpose(1, 2), (q, k, v), do)
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        torch.testing.assert_close(a.float(), b.float(), atol=5e-2, rtol=5e-2, msg=name)
+    with torch.no_grad():
+        out = fa.flash_attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2))
+    assert out.grad_fn is None
+
+
 def _fold_values(rng, n, dev):
     """float32 values of mixed signs and magnitudes (2**-30 to 2**20),
     with some signed zeros, so any change in the order of additions shows."""

@@ -239,16 +239,19 @@ def test_port_params_have_the_reference_layout(trees, arch):
 def test_unported_kinds_raise():
     """Every sublayer kind and FFN of the zoo is ported; a kind the zoo
     does not have raises before anything is allocated, and training
-    (`train_loss`) is not ported."""
+    (`train_loss`, ported since) raises on it before it runs a layer."""
     cfg = registry.get_smoke_config("qwen3-8b")
     gen = torch.Generator().manual_seed(0)
+    params = M.init_params(gen, cfg)
+    batch = {"tokens": torch.zeros((1, 8), dtype=torch.int32)}
     for period in ((LayerSpec("conv", "mlp"),), (LayerSpec("attn", "glu"),)):
         bad = dataclasses.replace(cfg, period=period)
         with pytest.raises(ValueError, match="unknown sublayer"):
             M.init_params(gen, bad)
         with pytest.raises(ValueError, match="unknown sublayer"):
             M.make_cache(bad, 1, 8, device="cpu")
-    assert not hasattr(M, "train_loss")
+        with pytest.raises(ValueError, match="unknown sublayer"):
+            M.train_loss(params, bad, batch)
 
 
 @pytest.mark.parametrize("arch", registry.ARCH_IDS)

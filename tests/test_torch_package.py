@@ -45,6 +45,42 @@ def test_port_imports_no_jax_and_nothing_of_repro(path):
             assert top not in ("jax", "jaxlib", "repro"), f"{path.name} imports {name}"
 
 
+def test_port_checks_cover_the_training_modules():
+    """The import rule above walks every module of the port, the training
+    slice's among them."""
+    names = {str(p.relative_to(ROOT / "src" / "repro_torch")) for p in PORT_FILES
+             if (ROOT / "src" / "repro_torch") in p.parents}
+    assert {"tree.py", "optim/adamw.py", "optim/adafactor.py", "optim/api.py", "train/state.py",
+            "train/step.py", "data/pipeline.py", "ckpt/checkpoint.py",
+            "launch/train.py"} <= names
+
+
+def test_reference_stubs_leave_nothing_behind():
+    """The reference zoo's stubs (`_torch_zoo_reference.reference_zoo`)
+    import the JAX trainer and leave no `repro.dist*`, `repro.models*`,
+    `repro.train*` or `repro.launch.train` module behind, so that
+    `test_train.py`'s ``importorskip("repro.dist")`` still skips."""
+    import importlib
+    import sys
+
+    from _torch_zoo_reference import reference_zoo
+
+    def stubbed():
+        return [n for n in sys.modules if n.split(".")[:2] in (["repro", "dist"],
+                                                               ["repro", "train"])
+                or n.startswith("repro.launch.train")]
+
+    assert not stubbed()
+    with reference_zoo():
+        step = importlib.import_module("repro.train.step")
+        with pytest.raises(RuntimeError, match="stub"):
+            step.sprayed_psum(None, "data")
+        assert "repro.dist.sprayed_collectives" in sys.modules
+    assert not stubbed()
+    with pytest.raises(ImportError):
+        importlib.import_module("repro.dist")
+
+
 def _dotted(node):
     parts = []
     while isinstance(node, ast.Attribute):
@@ -133,7 +169,8 @@ def test_entry_points_default_to_the_card():
         pytest.skip("a card is present: the default device is usable here")
     from repro_torch import random as prng
     from repro_torch.configs.registry import get_smoke_config
-    from repro_torch.launch import clustersim, jobsim, serve
+    from repro_torch.data import pipeline
+    from repro_torch.launch import clustersim, jobsim, serve, train
     from repro_torch.models import model
     from repro_torch.net import (cluster, collectives, fountain, jobs, scenarios, sender,
                                  topology, transport)
@@ -163,6 +200,8 @@ def test_entry_points_default_to_the_card():
         lambda: Router([1, 1]),
         lambda: model.make_cache(get_smoke_config("qwen3-8b"), 1, 8),
         lambda: serve.main(["--arch", "qwen3-8b", "--smoke"]),
+        lambda: train.main(["--arch", "qwen3-8b", "--smoke", "--steps", "1"]),
+        lambda: pipeline.host_batch(pipeline.SyntheticLM(256, 8, 2), 0),
     ]
     ring = collectives.ring_topology(4)
     job = jobs.compile_job("qwen3-8b", max_shard=16)
