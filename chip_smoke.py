@@ -6,7 +6,9 @@ Phases (the first that fails ends the run with a nonzero exit):
 
 1. Print the card's name and power limit, build every CUDA kernel from
    the sources in the checkout (one nvcc per source, in parallel), and
-   print ptxas's registers and spills for `spray_select` and `lt_encode`.
+   print ptxas's registers and spills for `spray_select`, `lt_encode`,
+   `link_fold` and the `flash_attention` sources (a spill in the latter
+   fails the run).
 2. Hold each kernel against its plain PyTorch version on the card: the
    `spray_select` kernel over every spray method x ell x path count, at
    131,072 decisions, plus ragged batches, path counts above 128 (129,
@@ -150,7 +152,11 @@ Phases (the first that fails ends the run with a nonzero exit):
    lse) to the plain versions at the CPU tests' shapes, the train shape
    and the zoo's (whisper's encoder and cross-attention, starcoder2's
    4,096 window, arctic's group of 7, a group of 7 at D 20), two calls
-   bit-equal, and times it beside the plain backward and SDPA's.
+   bit-equal, and times it at the train shape beside the plain backward
+   and SDPA's backward (all graph-replayed; the kernel and SDPA eager
+   too), with its launches' shares (delta, dK / dV, dQ) from
+   `torch.profiler` and its design's 7-product floor beside the
+   5-product bound.
 
 Each path of phases 4-11 runs with the kernels' launch counts set to 0
 just before it and read just after; a kernel row's ``launches`` is its
@@ -191,6 +197,7 @@ from repro_torch.core.spray import (  # noqa: E402
 )
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels.flash_attention import (  # noqa: E402
+    bwd_plan,
     flash_attention,
     flash_attention_bwd,
     flash_attention_bwd_plain,
@@ -479,13 +486,14 @@ def time_ms(fn, iters: int = 100, warmup: int = 10) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_ms(fn, iters: int = 100) -> float:
+def device_ms(fn, iters: int = 100, stream=None) -> float:
     """Mean device time per call: `iters` calls captured in one CUDA graph
-    and replayed, so the host's launch overhead drops out."""
+    (on ``stream``, default a stream of the graph's own) and replayed, so
+    the host's launch overhead drops out."""
     fn()
     torch.cuda.synchronize()
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
+    with torch.cuda.graph(graph, stream=stream):
         for _ in range(iters):
             fn()
     graph.replay()
@@ -1712,6 +1720,34 @@ def _attention_lse_plain(q, k, v, kw):
     return _plain(q, k, v, kw["causal"], kw["window"], None, kw["q_offset"], True)[1]
 
 
+# the backward's launches, by the kernel names of both sources
+BWD_LAUNCHES = {"delta_kernel": "delta", "dkdv_kernel": "dK / dV", "dq_kernel": "dQ"}
+
+
+def bwd_launch_shares(fn, calls: int = 5) -> dict:
+    """Device ms a call of each of the backward's launches over ``calls``
+    calls of ``fn`` (`torch.profiler`); fails when one is missing."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    ms = dict.fromkeys(BWD_LAUNCHES.values(), 0.0)
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = getattr(e, "self_cuda_time_total", 0.0)
+        for kernel, name in BWD_LAUNCHES.items():
+            if f"{kernel}<" in e.key or f"{kernel}(" in e.key:
+                ms[name] += float(us) / 1e3 / calls
+    if not all(ms.values()):
+        raise AssertionError(f"torch.profiler missed a backward launch: {ms}")
+    return ms
+
+
 def phase_flash_attention_bwd(dev):
     """flash_attention's gradient kernel (and the forward's lse) against the
     plain versions; returns the backward's row (bf16 at the train shape)."""
@@ -1748,30 +1784,56 @@ def phase_flash_attention_bwd(dev):
     checked += 1
     print(f"[kernels] flash_attention_bwd equals its plain version in {checked} cases, each "
           f"twice bit for bit")
+    how = bwd_plan(q, k, v, o, do)
+    if how.route != "wgmma" or any(how.copy):
+        raise AssertionError(f"flash_attention_bwd at the train shape: {how}")
     # SDPA's backward alone, on contiguous copies (a yardstick: the port
-    # never calls it)
+    # never calls it); its forward runs on a side stream, where autograd
+    # then runs the backward, so that the backward can be captured in a
+    # graph on that stream as the kernel is
     qs, ks, vs = (t.contiguous().requires_grad_() for t in (q, k, v))
-    out = F.scaled_dot_product_attention(qs, ks, vs, is_causal=True, enable_gqa=True)
     dos = do.contiguous()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        out = F.scaled_dot_product_attention(qs, ks, vs, is_causal=True, enable_gqa=True)
+    torch.cuda.current_stream().wait_stream(side)
+
+    def kernel():
+        return flash_attention_bwd(q, k, v, o, lse, do)
+
+    def sdpa():
+        return torch.autograd.grad(out, (qs, ks, vs), dos, retain_graph=True)
+
     graphed = {
-        "kernel": device_ms(lambda: flash_attention_bwd(q, k, v, o, lse, do), iters=5),
+        "kernel": device_ms(kernel, iters=5),
         "plain": device_ms(lambda: flash_attention_bwd_plain(q, k, v, o, lse, do), iters=2),
-        "sdpa": time_ms(lambda: torch.autograd.grad(out, (qs, ks, vs), dos, retain_graph=True),
-                        iters=20, warmup=3),
+        "sdpa": device_ms(sdpa, iters=5, stream=side),
     }
-    print("[kernels] flash_attention_bwd ms per call (kernel and plain graph-replayed, sdpa's "
-          "backward eager on events): " + ", ".join(f"{k} {v:.6f}" for k, v in graphed.items()))
+    eager = {name: time_ms(fn, iters=20, warmup=3) for name, fn in (("kernel", kernel),
+                                                                    ("sdpa", sdpa))}
+    print("[kernels] flash_attention_bwd ms per call, graph-replayed: "
+          + ", ".join(f"{k} {v:.6f}" for k, v in graphed.items()) + "; eager on events: "
+          + ", ".join(f"{k} {v:.6f}" for k, v in eager.items()))
     del out, qs, ks, vs, dos
+    shares = bwd_launch_shares(kernel)
+    total = sum(shares.values())
+    print("[kernels] flash_attention_bwd launches at the train shape (torch.profiler, ms a "
+          "call): " + ", ".join(f"{k} {v:.6f} ({100 * v / total:.1f}%)"
+                                for k, v in shares.items()))
     # the bound: dP and S recomputed, dV, dK and dQ: 5 products of 2 D flops
     # per visible (query, key) pair, S**2 / 2 pairs per (b, h); q, k, v, o,
-    # do and lse read once, dq, dk and dv written once
+    # do and lse read once, dq, dk and dv written once.  The design's own
+    # floor: 7 products (S and dP again in the dQ launch)
     ops = 5 * 2 * D * (S * S // 2) * B * H
+    ops7 = 7 * 2 * D * (S * S // 2) * B * H
     nbytes = 2 * (3 * q.numel() + 2 * k.numel() + 2 * v.numel() + o.numel()) + 4 * lse.numel()
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / BF16_OPS_PER_S * 1e3
     bound_by = "bytes" if t_bytes >= t_ops else "operations"
-    print(f"[kernels] flash_attention_bwd [B {B}, H {H}, KVH {KVH}, S {S}, D {D}, bf16, causal]: "
-          f"{ops} flops -> {t_ops:.6f} ms, {nbytes} B -> {t_bytes:.6f} ms; kernel "
-          f"{graphed['kernel']:.6f} ms ({ops / graphed['kernel'] / 1e9:.1f} TFLOP/s, "
+    print(f"[kernels] flash_attention_bwd [B {B}, H {H}, KVH {KVH}, S {S}, D {D}, bf16, causal, "
+          f"route {how.route}]: {ops} flops -> {t_ops:.6f} ms, {nbytes} B -> {t_bytes:.6f} ms; "
+          f"the design's 7 products {ops7} flops -> {ops7 / BF16_OPS_PER_S * 1e3:.6f} ms; "
+          f"kernel {graphed['kernel']:.6f} ms ({ops / graphed['kernel'] / 1e9:.1f} TFLOP/s, "
           f"{100 * max(t_bytes, t_ops) / graphed['kernel']:.1f}% of the bound), plain "
           f"{graphed['plain']:.6f} ms, sdpa backward {graphed['sdpa']:.6f} ms, bound "
           f"{max(t_bytes, t_ops):.6f} ms ({bound_by})")
@@ -2410,7 +2472,8 @@ def main() -> int:
     logs = build.build_all()
     for name, log in logs.items():
         print(f"[build] {name}: {log.strip()}")
-    for name in ("spray_select", "lt_encode", "link_fold", "flash_attention_bwd"):
+    for name in ("spray_select", "lt_encode", "link_fold", "flash_attention",
+                 "flash_attention_bwd", "flash_attention_bwd_f32"):
         report = ptxas_report(logs[name])
         if logs[name] == "up to date":
             print(f"[build] ptxas {name}: built by an earlier run, no report")
@@ -2419,6 +2482,8 @@ def main() -> int:
         for kernel, regs, stores, loads in report:
             print(f"[build] ptxas {name}: {kernel}: {regs} registers, spill stores {stores} B, "
                   f"spill loads {loads} B")
+            if name.startswith("flash_attention") and (stores or loads):
+                raise AssertionError(f"ptxas spills in {name}.cu: {kernel}")
     print(f"[build] {len(logs)} kernel(s) built in {time.time() - t0:.1f} s")
     message = coded_message()
     rows = {"spray_select": phase_kernels(dev), "lt_encode": phase_lt_encode(dev, message),

@@ -177,6 +177,7 @@ def main() -> int:
     ap.add_argument("--steps", type=int, default=None,
                     help="steps to profile (default: coded 2, router 50, prefill 3, fattree 64, jamba 20, "
                     "whisper 20, decode 20, job 3, cluster 3, train 3)")
+    ap.add_argument("--top", type=int, default=12, help="device operations to list (default 12)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("profile_cells: no CUDA device", file=sys.stderr)
@@ -207,7 +208,7 @@ def main() -> int:
     print(f"device busy {busy_us / steps:.1f} us/{unit}, busy share {busy_us / wall_us:.4f}, "
           f"idle share {1 - busy_us / wall_us:.4f}, device operations "
           f"{sum(e.count for e in ops) / steps:.1f}/{unit}")
-    for e in sorted(ops, key=_device_us, reverse=True)[:12]:
+    for e in sorted(ops, key=_device_us, reverse=True)[:args.top]:
         print(f"  {_device_us(e) / steps:9.2f} us/{unit}  {e.count / steps:6.1f}/{unit}  "
               f"{e.key[:90]}")
     return 0

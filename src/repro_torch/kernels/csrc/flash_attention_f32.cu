@@ -17,7 +17,7 @@
 // f32, as the TPU kernel keeps them.  A row whose keys are all masked comes
 // out as zeros.  When `lse` is not null the kernel also writes each row's
 // log-sum-exp, m + log(l) (-inf where l = 0), which the backward
-// (flash_attention_bwd.cu) reads to recompute the probabilities.
+// (flash_attention_bwd_f32.cu) reads to recompute the probabilities.
 //
 // Design: one block of 256 threads per (tile of 64 query rows, b * H + h).
 // The block keeps its scaled query tile in shared memory and walks the key

@@ -2,9 +2,9 @@
 // mbarrier helpers, 4-d tensor-map loads, and the host-side tensor-map
 // encoding (cuTensorMapEncodeTiled taken from the loaded libcuda.so.1).
 //
-// Included by flash_attention.cu and flash_decode.cu, each built into its own
-// library.  (No unnamed namespace here: nvcc's registration stub cannot tell
-// it from the including file's own.)
+// Included by flash_attention.cu, flash_attention_bwd.cu and flash_decode.cu,
+// each built into its own library.  (No unnamed namespace here: nvcc's
+// registration stub cannot tell it from the including file's own.)
 #pragma once
 
 #include <cstdint>
@@ -72,6 +72,16 @@ __device__ __forceinline__ void tma_load_rows(uint32_t dst, const CUtensorMap* m
                                               int head, int b) {
   auto at = [&](int dim) { return ax.s == dim ? row : ax.h == dim ? head : b; };
   tma_load(dst, map, bar, d0, at(1), at(2), at(3));
+}
+
+// `bytes` contiguous bytes into shared memory, completing on `bar`: both
+// addresses 16-byte aligned, `bytes` a multiple of 16
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, uint32_t bytes,
+                                          uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+      ::"r"(dst), "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(bar)
+      : "memory");
 }
 
 // ---------------------------------------------------------------- host side

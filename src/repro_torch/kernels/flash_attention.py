@@ -30,9 +30,19 @@ The gradient.  When an input requires grad (and grad mode is on),
 `flash_attention` goes through a `torch.autograd.Function`: its forward
 asks the kernel for the rows' log-sum-exp as well (``lse [B, H, Sq]``, f32,
 the natural log of the sum of ``exp(scale q . k)`` over visible keys; -inf
-for a row that sees no key), and its backward is `flash_attention_bwd`, the
-hand-written kernel ``csrc/flash_attention_bwd.cu``, which recomputes the
-probabilities from the saved lse.  The JAX package has no gradient of its
+for a row that sees no key), and its backward is `flash_attention_bwd`,
+which recomputes the probabilities from the saved lse on one of two
+kernels (`bwd_plan`):
+
+* bf16 at a head dim up to 128: the tensor-core kernel
+  (``csrc/flash_attention_bwd.cu``: wgmma, TMA and an mbarrier ring; P and
+  dS rounded to bf16 before their products).  TMA reads q, k, v and do,
+  with the forward's rule and copy; o is read with plain loads.
+* f32, and bf16 above a head dim of 128 (two 64 x D f32 accumulators a
+  thread would not fit in its registers): the CUDA-core kernel
+  (``csrc/flash_attention_bwd_f32.cu``), every product in f32.
+
+The JAX package has no gradient of its
 Pallas kernel (``jax.grad`` through ``flash_attention_pallas`` raises); its
 trainer differentiates the chunked path (`repro.kernels.ref`), and the
 port's tests take their reference gradient from there.  A call without
@@ -55,12 +65,18 @@ import torch
 from repro_torch.kernels import tma
 
 __all__ = ["flash_attention", "flash_attention_plain", "flash_attention_with_lse",
-           "flash_attention_bwd", "flash_attention_bwd_plain", "plan", "Plan", "ROUTES"]
+           "flash_attention_bwd", "flash_attention_bwd_plain", "plan", "bwd_plan", "Plan",
+           "ROUTES"]
 
 # the kernel each dtype takes on the card, and the source it is built from
 ROUTES = {torch.bfloat16: "wgmma", torch.float32: "cuda-core"}
 _SOURCES = {"wgmma": "flash_attention", "cuda-core": "flash_attention_f32"}
+# the backward's: bf16 takes the wgmma kernel up to this head dim
+BWD_SOURCES = {"wgmma": "flash_attention_bwd", "cuda-core": "flash_attention_bwd_f32"}
+BWD_MAX_WGMMA_HEAD_DIM = 128
 MAX_HEAD_DIM = 256
+# the wgmma backward's lse / delta scratch rows are padded to a multiple of this
+_BWD_PAD = 128
 
 
 def _scale(scale, D: int) -> float:
@@ -185,6 +201,18 @@ def plan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> Plan:
     return Plan(route, tuple(t.stride(-1) != 1 for t in (q, k, v)))
 
 
+def bwd_plan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor,
+             do: torch.Tensor) -> Plan:
+    """The backward's route by dtype and head dim, and which of q, k, v,
+    o, do the wrapper copies first: on the wgmma route what TMA cannot read
+    of q, k, v and do, and an o whose head-dim stride is not 1 (read with
+    plain loads); on the CUDA-core route any head-dim stride other than 1."""
+    if q.dtype == torch.bfloat16 and q.shape[-1] <= BWD_MAX_WGMMA_HEAD_DIM:
+        return Plan("wgmma", tuple(not tma.ready(t) for t in (q, k, v))
+                    + (o.stride(-1) != 1, not tma.ready(do)))
+    return Plan("cuda-core", tuple(t.stride(-1) != 1 for t in (q, k, v, o, do)))
+
+
 def _aligned_copy(t: torch.Tensor, route: str) -> torch.Tensor:
     """A contiguous copy; on the wgmma route with D padded with zeros to a
     multiple of 8, so that every stride is a multiple of 16 bytes."""
@@ -273,11 +301,15 @@ flash_attention.copies = 0
 
 
 @functools.cache
-def _bwd_launcher():
+def _bwd_launcher(route: str):
+    """The backward route's C entry point, built and bound at its first
+    CUDA call (the CUDA-core one also takes a bf16 flag)."""
     from repro_torch.kernels.build import load
 
-    fn = load("flash_attention_bwd").flash_attention_bwd_launch
-    fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 7
+    name = BWD_SOURCES[route]
+    fn = getattr(load(name), f"{name}_launch")
+    flag = [ctypes.c_int] if route == "cuda-core" else []
+    fn.argtypes = ([ctypes.c_void_p] * 10 + flag + [ctypes.c_int] * 6
                    + [ctypes.c_void_p, ctypes.c_float] + [ctypes.c_int] * 3 + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
@@ -289,9 +321,10 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: to
                         q_offset: int = 0):
     """(dq, dk, dv) of `flash_attention` from its output o, the rows' lse
     and the output's gradient do; `flash_attention_bwd_plain` on CPU
-    tensors, else one launch of ``csrc/flash_attention_bwd.cu`` (a tensor
-    whose head-dim stride is not 1 is copied first, counted in
-    `flash_attention_bwd.copies`).  Outputs have the layouts of q, k, v."""
+    tensors, else one launch of the route's kernel (`bwd_plan`; an operand
+    it cannot read in place is copied first, counted in
+    `flash_attention_bwd.copies`).  Outputs have the layouts of q, k, v
+    as the kernel reads them."""
     _check(q, k, v, window)
     B, H, Sq, D = q.shape
     KVH, Sk = k.shape[1], k.shape[2]
@@ -304,25 +337,30 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: to
     kw = dict(causal=causal, window=window, scale=scale, q_offset=q_offset)
     if _on_cpu(q, k, v, o, lse, do):
         return flash_attention_bwd_plain(q, k, v, o, lse, do, **kw)
-    fn = _bwd_launcher()
-    ts = [q, k, v, o, do]
-    for i, t in enumerate(ts):
-        if t.stride(-1) != 1:
-            ts[i] = t.contiguous()
-            flash_attention_bwd.copies += 1
-    q, k, v, o, do = ts
+    how = bwd_plan(q, k, v, o, do)
+    fn = _bwd_launcher(how.route)
+    q, k, v, o, do = (_aligned_copy(t, how.route) if c else t
+                      for t, c in zip((q, k, v, o, do), how.copy))
+    flash_attention_bwd.copies += sum(how.copy)
     lse = lse.contiguous()
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    delta = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
+    if how.route == "wgmma":
+        # lse in the exp2 domain and delta, rows padded for the bulk copies
+        scratch = torch.empty((2, B, H, -(-Sq // _BWD_PAD) * _BWD_PAD), dtype=torch.float32,
+                              device=q.device)
+        flag = ()
+    else:
+        scratch = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)  # delta
+        flag = (int(q.dtype == torch.bfloat16),)
     strides = (ctypes.c_longlong * 24)(*(t.stride(i) for t in (q, k, v, o, do, dq, dk, dv)
                                          for i in range(3)))
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
-             lse.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), delta.data_ptr(),
-             int(q.dtype == torch.bfloat16), B, H, KVH, Sq, Sk, D, strides, _scale(scale, D),
-             int(causal), 0 if window is None else int(window), int(q_offset), stream)
+             lse.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), scratch.data_ptr(),
+             *flag, B, H, KVH, Sq, Sk, D, strides, _scale(scale, D), int(causal),
+             0 if window is None else int(window), int(q_offset), stream)
     if err != 0:
-        raise RuntimeError(f"flash_attention_bwd launch failed with error {err}")
+        raise RuntimeError(f"flash_attention_bwd ({how.route}) launch failed with error {err}")
     flash_attention_bwd.launches += 1
     return dq, dk, dv
 

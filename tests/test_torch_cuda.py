@@ -491,6 +491,27 @@ def test_flash_attention_bwd_kernel_matches_plain(cuda, B, H, KVH, Sq, Sk, D, ca
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("D", [64, 128])
+def test_flash_attention_bwd_graph_replays_are_identical(cuda, D):
+    """The wgmma route's three launches (delta, dK / dV, dQ) captured in a
+    CUDA graph: three replays give the eager call's bits."""
+    from repro_torch.kernels import flash_attention as fa
+
+    g = torch.Generator(device=cuda).manual_seed(D)
+    q, k, v, o, lse, do = _bwd_inputs(g, 2, 8, 2, 300, 300, D, torch.bfloat16, cuda)
+    assert fa.bwd_plan(q, k, v, o, do) == fa.Plan("wgmma", (False,) * 5)
+    eager = fa.flash_attention_bwd(q, k, v, o, lse, do)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = fa.flash_attention_bwd(q, k, v, o, lse, do)
+    for _ in range(3):
+        graph.replay()
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(out, eager))
+
+
+@pytest.mark.cuda
 def test_flash_attention_autograd_goes_through_the_kernels(cuda):
     """Under autograd the model's layout (transposed [B, S, heads, D]
     views, bf16) runs the forward with lse and the backward kernel, no
