@@ -135,7 +135,8 @@ Phases (the first that fails ends the run with a nonzero exit):
    losses within 2e-3 and step-1 gradients within 5e-2 relative L2 per
    leaf (jamba 0.1), the CPU tests' tolerances; `flash_attention` twice
    (remat) and `flash_attention_bwd` once an attention sublayer and
-   encoder layer a step; (b) the trainer CLI (`--arch qwen3-8b --smoke
+   encoder layer a step; xlstm-350m's and jamba's also at 4 x 128 tokens,
+   two 64-step chunks of their scans (`TRAIN_LONG_GRAD_TOL`); (b) the trainer CLI (`--arch qwen3-8b --smoke
    --device cuda --steps 6 --ckpt-every 3`) under deterministic
    algorithms, straight and resumed from the step-3 checkpoint: the final
    checkpoints equal SHA1 for SHA1 (two runs without deterministic
@@ -148,8 +149,25 @@ Phases (the first that fails ends the run with a nonzero exit):
    float64 (the noise floor, as `scripts/dense_noise_floor.py --train`
    measures it): every step's loss and every leaf of the step-1 gradient
    of the kernels' run within `TRAIN_FLOOR_RATIO` times the floor of the
-   plain run.  Phase 2 holds `flash_attention_bwd` (and the forward's
-   lse) to the plain versions at the CPU tests' shapes, the train shape
+   plain run; (d) xlstm-350m whole at its published widths (24 layers, d
+   1,024), f32 weights from seed 0, AdamW, one step of `SyntheticLM`
+   batches of 8 x 256 tokens with the chunked scans (`ssm.chunked_scan`):
+   ms a step, tokens/s, peak memory; then with the unchunked ones
+   (`unchunked_scans`): losses and step-1 gradients bit-equal, and its
+   peak beside the reckoned bytes of saved states (a step at 8 x 2,048
+   tokens takes minutes: `scripts/profile_cells.py --cell train_xlstm`);
+   no kernel runs (xlstm has no attention); (e) jamba-v0.1-52b at its
+   published widths cut to the serving cell's period (8 of 32 layers, ~27
+   GB of bf16 weights), Adafactor (the config's), batches of 2 x 2,048
+   tokens, 2 steps: the numbers of (d), `flash_attention` with lse twice and
+   `flash_attention_bwd` once a step, no copies; then the same steps with
+   ``remat_policy="save_ffn"`` (losses and step-1 gradients bit-equal, its
+   peak and ms a step), with the plain attention and with the plain
+   attention in float64, the first run's MoE choices replayed: every loss
+   and every leaf of the step-1 gradient of the kernels' run within
+   `TRAIN_FLOOR_RATIO` times the floor, as in (c).  Phase 2 holds
+   `flash_attention_bwd` (and the forward's lse) to the plain versions at
+   the CPU tests' shapes, the train shape
    and the zoo's (whisper's encoder and cross-attention, starcoder2's
    4,096 window, arctic's group of 7, a group of 7 at D 20), two calls
    bit-equal, and times it at the train shape beside the plain backward
@@ -167,6 +185,7 @@ device the script exits nonzero and prints no result.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import hashlib
 import json
@@ -222,7 +241,7 @@ from repro_torch import tree  # noqa: E402
 from repro_torch.data.pipeline import SyntheticLM, host_batch  # noqa: E402
 from repro_torch.launch.serve import generate, serve_batch  # noqa: E402
 from repro_torch.launch.train import modality_stubs  # noqa: E402
-from repro_torch.models import layers  # noqa: E402
+from repro_torch.models import layers, ssm  # noqa: E402
 from repro_torch.models import model as M  # noqa: E402
 from repro_torch.models.layers import kv_dequantize  # noqa: E402
 from repro_torch.optim.api import make_optimizer  # noqa: E402
@@ -422,6 +441,33 @@ TRAIN_ARCH, TRAIN_LAYERS, TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = "qwen3-8b", 4, 4
 # times its floor (FULL_RMS_TOL against rms 0.035), every step's loss and
 # every leaf of the step-1 gradient must stay within 4 times the floor.
 TRAIN_FLOOR_RATIO = 4.0
+# the smoke configs whose scans run more than one 64-step chunk: also trained
+# at 256 tokens, card against CPU
+TRAIN_SMOKE_LONG_ARCHS, TRAIN_SMOKE_LONG_SEQ = ("xlstm-350m", "jamba-v0.1-52b"), 128
+# their step-1 gradients within 0.2 relative L2 per leaf there (losses 2e-3
+# as at 64): bf16 roundings run through twice the recurrent steps and
+# compound through the layers, and the port itself stands up to 0.083
+# (xlstm, an mLSTM gate) and 0.18 (jamba, a router) from the JAX reference
+# at 4 x 128 tokens on the CPU (0.013 and 0.054 at 64), as the card may
+# stand from the CPU
+TRAIN_LONG_GRAD_TOL = 0.2
+# the recurrent training cell: xlstm-350m whole at its published widths (24
+# layers, d 1,024, 4 heads, vocab 50,304; arXiv:2405.04517), f32 weights,
+# AdamW at the CLI's defaults, SyntheticLM batches of 8 x 2,048 tokens
+# (the CLI's --global-batch 8).  Its step is host-bound (every recurrent
+# step a few dozen small device operations): minutes on an H100's host,
+# more than this script's time allows, so `scripts/profile_cells.py --cell
+# train_xlstm` runs it; here one step at 8 x 256 tokens (4 chunks) with
+# both scan forms, chunked and unchunked (whose backward holds 16 GiB of
+# states a mLSTM sublayer there, 128 GiB at 2,048)
+XLSTM_ARCH, XLSTM_BATCH, XLSTM_SEQ = "xlstm-350m", 8, 2048
+XLSTM_CMP_SEQ, XLSTM_CMP_STEPS = 256, 1
+# the hybrid training cell: jamba-v0.1-52b at its published widths cut to
+# the serving cell's period (8 of 32 layers: 7 mamba, 1 attention, 4 MoE,
+# 4 MLP; ~27 GB of bf16 weights), bf16 weights and Adafactor (the
+# config's), batches of 2 x 2,048 tokens, 2 steps (four runs of it, with
+# 27 GB of gradients through the host for each, take ~100 s), step 2 timed
+JAMBA_TRAIN_BATCH, JAMBA_TRAIN_SEQ, JAMBA_TRAIN_STEPS = 2, 2048, 2
 
 
 def golden_fabric(n: int, device) -> FabricParams:
@@ -2199,18 +2245,25 @@ class TrainRun:
 
     def __init__(self):
         self.losses = []       # per step: loss, ce, moe_aux, lr_scale (floats)
-        self.grads = {}        # step 1's gradient, leaf key -> f32 tensor on the CPU
+        self.grads = {}        # what `keep` made of step 1's gradient
         self.step_s = []       # host clock around each step, synchronised
         self.launches = []     # per step: (flash_attention, flash_attention_bwd) launches
         self.copies = (0, 0)   # aligning copies over the run (forward, backward)
 
 
-def _train(cfg, params, opt_name, batches, *, routes=None, plain=False) -> TrainRun:
+def _f32_on_host(grads) -> dict:
+    """Step 1's gradient as f32 copies on the host, by leaf key."""
+    return {k: g.detach().float().to("cpu", copy=True) for k, g in tree.paths(grads)}
+
+
+def _train(cfg, params, opt_name, batches, *, routes=None, plain=False, remat_policy=None,
+           keep=_f32_on_host) -> TrainRun:
     """AdamW (or ``opt_name``) steps at the CLI's lr from ``params`` (updated
-    in place), one a batch, with the launches of each step counted."""
+    in place), one a batch, with the launches of each step counted;
+    ``keep`` makes ``run.grads`` of step 1's gradient, after the step."""
     opt = make_optimizer(opt_name, lr=3e-3)
     state = TrainState.create(params, opt.init(params))
-    step = build_train_step(cfg, opt, routes=routes, plain=plain)
+    step = build_train_step(cfg, opt, routes=routes, plain=plain, remat_policy=remat_policy)
     dev = batches[0]["tokens"].device
     run = TrainRun()
     copies = (flash_attention.copies, flash_attention_bwd.copies)
@@ -2220,13 +2273,13 @@ def _train(cfg, params, opt_name, batches, *, routes=None, plain=False) -> Train
             torch.cuda.synchronize()
         t0 = time.perf_counter()
         loss, metrics, grads = step.grads(state.params, batch)
-        if i == 0:
-            run.grads = {k: g.detach().float().to("cpu", copy=True) for k, g in tree.paths(grads)}
         state, m = step.apply(state, loss, metrics, grads)
-        del grads, loss, metrics
         if dev.type == "cuda":
             torch.cuda.synchronize()
         run.step_s.append(time.perf_counter() - t0)
+        if i == 0:
+            run.grads = keep(grads)
+        del grads, loss, metrics
         run.launches.append((flash_attention.launches - before[0],
                              flash_attention_bwd.launches - before[1]))
         run.losses.append({k: float(v) for k, v in m.items()})
@@ -2238,15 +2291,16 @@ def _rel_l2(a, b) -> float:
     return float((a - b).norm() / b.norm().clamp(min=1e-30))
 
 
-def _train_smoke_card_vs_cpu(cfg, dev):
-    """3 steps of a smoke config on the card against the same steps on the
-    CPU (which the CPU tests hold to the JAX package), the CPU run's MoE
-    choices replayed: losses and step-1 gradients within the CPU tests'
-    tolerances, and flash_attention's forward twice (remat) and its
-    backward once an attention sublayer and encoder layer a step."""
+def _train_smoke_card_vs_cpu(cfg, dev, seq=TRAIN_SMOKE_SEQ):
+    """3 steps of a smoke config (``seq`` tokens a sequence) on the card
+    against the same steps on the CPU (which the CPU tests hold to the JAX
+    package), the CPU run's MoE choices replayed: losses and step-1
+    gradients within the CPU tests' tolerances, and flash_attention's
+    forward twice (remat) and its backward once an attention sublayer and
+    encoder layer a step."""
     opt = cfg.optimizer
     params = M.init_params(torch.Generator().manual_seed(0), cfg)
-    batches = _train_batches(cfg, TRAIN_SMOKE_BATCH, TRAIN_SMOKE_SEQ, TRAIN_SMOKE_STEPS, "cpu")
+    batches = _train_batches(cfg, TRAIN_SMOKE_BATCH, seq, TRAIN_SMOKE_STEPS, "cpu")
     routes = Routes()
     card_params = tree.map_leaves(lambda t: t.to(dev, copy=True), params)  # before the update
     cpu = _train(cfg, params, opt, batches, routes=routes)
@@ -2256,7 +2310,7 @@ def _train_smoke_card_vs_cpu(cfg, dev):
     if loss_err > TRAIN_LOSS_TOL:
         raise AssertionError(f"train smoke {cfg.name}: losses differ by {loss_err} > "
                              f"{TRAIN_LOSS_TOL}: {cpu.losses} vs {card.losses}")
-    tol = TRAIN_GRAD_TOL.get(cfg.name, 5e-2)
+    tol = TRAIN_LONG_GRAD_TOL if seq > TRAIN_SMOKE_SEQ else TRAIN_GRAD_TOL.get(cfg.name, 5e-2)
     errs = {k: _rel_l2(card.grads[k], cpu.grads[k]) for k in cpu.grads}
     worst = max(errs, key=errs.get)
     if errs[worst] > tol:
@@ -2267,7 +2321,7 @@ def _train_smoke_card_vs_cpu(cfg, dev):
         raise AssertionError(f"train smoke {cfg.name}: launches per step {card.launches}, "
                              f"expected {(2 * per, per)}")
     print(f"[train] smoke {cfg.name} ({opt}): card vs CPU, {TRAIN_SMOKE_STEPS} steps of "
-          f"{TRAIN_SMOKE_BATCH} x {TRAIN_SMOKE_SEQ} tokens: losses "
+          f"{TRAIN_SMOKE_BATCH} x {seq} tokens: losses "
           f"{[round(x['loss'], 6) for x in card.losses]}, max |diff| {loss_err}; step-1 "
           f"gradients max relative L2 {errs[worst]} ({worst}); MoE choices replayed, "
           f"{int(routes.flips)} of {routes.choices} would have gone otherwise; launches a step "
@@ -2359,17 +2413,18 @@ def train_cell(dev):
     return cfg, _train_batches(cfg, TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, dev)
 
 
-def train_full(cfg, batches, *, attention=None, plain=False) -> TrainRun:
-    """The training cell's steps from f32 weights drawn on the card from
-    seed 0; ``attention`` replaces the plain attention of a ``plain`` run
-    (the noise floor's float64 form)."""
+def train_full(cfg, batches, *, attention=None, plain=False, **kw) -> TrainRun:
+    """A training cell's steps from weights drawn on the card from seed 0
+    in the config's dtype, with its optimizer; ``attention`` replaces the
+    plain attention of a ``plain`` run (the noise floor's float64 form);
+    ``kw`` go to `_train`."""
     dev = batches[0]["tokens"].device
     params = M.init_params(torch.Generator(device=dev).manual_seed(0), cfg)
     kept = layers.flash_attention_plain
     if attention is not None:
         layers.flash_attention_plain = attention
     try:
-        return _train(cfg, params, cfg.optimizer, batches, plain=plain)
+        return _train(cfg, params, cfg.optimizer, batches, plain=plain, **kw)
     finally:
         layers.flash_attention_plain = kept
 
@@ -2420,37 +2475,210 @@ def _train_full_width(dev):
           f"{[x['loss'] for x in plain.losses]}")
     f64 = train_full(cfg, batches, plain=True, attention=f64_attention)
     loss, grads = train_floor(kernels, plain, f64)
+    _check_floor(f"{cfg.name} training cell", loss, grads, kernels.losses[0]["loss"])
+    return launches
+
+
+def _check_floor(what, loss, grads, loss0):
+    """Print the floor (the plain attention in f32 against float64) and the
+    kernels' distance from the plain run, per step's loss and per leaf of
+    the step-1 gradient (`train_floor`'s pairs), and fail where the kernels
+    stand more than `TRAIN_FLOOR_RATIO` times the floor away."""
     eps = float(np.finfo(np.float32).eps)
-    loss_ratio = max(a for a, _ in loss) / max(max(b for _, b in loss),
-                                                eps * kernels.losses[0]["loss"])
+    loss_ratio = max(a for a, _ in loss) / max(max(b for _, b in loss), eps * loss0)
     ratios = {k: a / max(b, eps) for k, (a, b) in grads.items()}
     worst = max(ratios, key=ratios.get)
-    print(f"[train] floor (the plain attention in f32 against float64): losses differ by "
-          f"{[b for _, b in loss]}, step-1 gradients by relative L2 up to "
+    print(f"[train] {what}: floor (the plain attention in f32 against float64): losses differ "
+          f"by {[b for _, b in loss]}, step-1 gradients by relative L2 up to "
           f"{max(b for _, b in grads.values())} (median "
           f"{float(np.median([b for _, b in grads.values()]))}); the kernels against the plain "
           f"attention: losses {[a for a, _ in loss]}, gradients up to "
           f"{max(a for a, _ in grads.values())}; ratio to the floor: losses {loss_ratio}, "
           f"gradients {ratios[worst]} ({worst}), limit {TRAIN_FLOOR_RATIO}")
     if loss_ratio > TRAIN_FLOOR_RATIO or ratios[worst] > TRAIN_FLOOR_RATIO:
-        raise AssertionError(f"training cell: the kernels' run stands "
+        raise AssertionError(f"{what}: the kernels' run stands "
                              f"{max(loss_ratio, ratios[worst])} times the floor from the plain "
                              f"run (limit {TRAIN_FLOOR_RATIO})")
+
+
+def _mean_ms(run: TrainRun) -> float:
+    """ms a step over the timed steps: all but the first, or a lone first."""
+    timed = run.step_s[1:] or run.step_s
+    return sum(timed) * 1e3 / len(timed)
+
+
+@contextlib.contextmanager
+def unchunked_scans():
+    """The recurrent blocks' training forms replaced by their prefill forms'
+    outputs, whose backward keeps every step's state (the scans without
+    `ssm.chunked_scan`'s checkpoints); restored on exit."""
+    kept = {k: getattr(ssm, k) for k in ("mamba", "mlstm", "slstm")}
+    for k in kept:
+        setattr(ssm, k, lambda p, cfg, x, f=getattr(ssm, f"{k}_prefill"): f(p, cfg, x)[0])
+    try:
+        yield
+    finally:
+        for k, fn in kept.items():
+            setattr(ssm, k, fn)
+
+
+def _train_xlstm(dev):
+    """(d) xlstm-350m whole at its published widths and batch, 256 tokens:
+    the chunked scans (ms a step, tokens/s, peak memory) and the unchunked
+    ones, bit-equal, with their two peaks."""
+    cfg = get_config(XLSTM_ARCH)
+    B, S = XLSTM_BATCH, XLSTM_CMP_SEQ
+    batches = _train_batches(cfg, B, S, XLSTM_CMP_STEPS, dev)
+    runs, peaks = {}, {}
+    flash_attention.launches = flash_attention_bwd.launches = 0
+    for form in ("chunked", "unchunked"):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        with unchunked_scans() if form == "unchunked" else contextlib.nullcontext():
+            runs[form] = train_full(cfg, batches)
+        peaks[form] = torch.cuda.max_memory_allocated()
+    a, b = runs["chunked"], runs["unchunked"]
+    if any(n != (0, 0) for n in a.launches + b.launches):
+        raise AssertionError(f"{cfg.name}: attention launches {a.launches} (it has none)")
+    if not all(math.isfinite(x["loss"]) for x in a.losses):
+        raise AssertionError(f"{cfg.name} training: losses {a.losses}")
+    dh = int(cfg.xlstm_proj_factor * cfg.d_model) // cfg.n_heads
+    # each unchunked step saves the incoming C and k v^T, [B, H, dh, dh] f32 each
+    states = 2 * B * cfg.n_heads * dh * dh * 4
+    differ = sorted(k for k in a.grads if not torch.equal(a.grads[k], b.grads[k]))
+    ms = _mean_ms(a)
+    print(f"[train] (d) {cfg.name} whole ({cfg.n_layers} layers, d_model {cfg.d_model}, "
+          f"{cfg.n_heads} heads, vocab {cfg.vocab_size}), "
+          f"{sum(g.numel() for g in a.grads.values())} f32 parameters, AdamW, batches of {B} x "
+          f"{S} tokens, {XLSTM_CMP_STEPS} step(s): chunked scans {ms:.3f} ms a step "
+          f"({B * S / ms * 1e3:.1f} tokens/s), peak memory {peaks['chunked']} B; unchunked "
+          f"{_mean_ms(b):.3f} ms a step, peak memory {peaks['unchunked']} B (reckoned: "
+          f"{states * S} B of saved states a mLSTM sublayer, {states * XLSTM_SEQ} B at "
+          f"{XLSTM_SEQ} tokens); losses {[x['loss'] for x in a.losses]} and "
+          f"{[x['loss'] for x in b.losses]}; step-1 gradients differ in {len(differ)} of "
+          f"{len(a.grads)} leaves")
+    if a.losses != b.losses or differ:
+        raise AssertionError(f"{cfg.name}: the chunked and unchunked scans differ (losses "
+                             f"{a.losses} vs {b.losses}; gradients {differ[:6]})")
+
+
+class _HostGrads:
+    """One run's step-1 gradient on the host in its own dtype, which the
+    next runs' are held to leaf by leaf on the card (jamba's 27 GB fit the
+    host once, not once a run, in f32)."""
+
+    def __init__(self):
+        self.leaves = {}
+
+    def keep(self, grads) -> dict:
+        self.leaves = {k: g.to("cpu", copy=True) for k, g in tree.paths(grads)}
+        return {}
+
+    def equal(self, grads) -> dict:
+        """Per leaf: bit-equal to the kept one."""
+        return {k: bool(torch.equal(g, self.leaves[k].to(g.device)))
+                for k, g in tree.paths(grads)}
+
+    def rel_l2(self, grads, replace: bool = False) -> dict:
+        """Per leaf: the relative L2 distance from the kept one (in f32, a
+        slice at a time); with ``replace`` this run's leaves are kept."""
+        out = {}
+        for k, g in tree.paths(grads):
+            ref = self.leaves[k].to(g.device).reshape(-1)
+            num = den = 0.0
+            for s0 in range(0, ref.numel(), 1 << 26):
+                x, y = g.reshape(-1)[s0:s0 + (1 << 26)].float(), ref[s0:s0 + (1 << 26)].float()
+                num += float((x - y).square().sum(dtype=torch.float64))
+                den += float(y.square().sum(dtype=torch.float64))
+            out[k] = math.sqrt(num) / max(math.sqrt(den), 1e-30)
+            if replace:
+                self.leaves[k] = g.to("cpu", copy=True)
+        return out
+
+
+def _train_jamba(dev):
+    """(e) jamba's period at its published widths with bf16 weights and
+    Adafactor: the kernels' run (ms a step, tokens/s, peak memory,
+    launches), the same steps with
+    ``remat_policy="save_ffn"`` (bit-equal), with the plain attention and
+    with the plain attention in float64 (the floor), the MoE choices of the
+    first run replayed.  Returns the kernels' launches of the first two."""
+    cfg = dataclasses.replace(get_config("jamba-v0.1-52b"), n_layers=JAMBA_LAYERS)
+    B, S, steps = JAMBA_TRAIN_BATCH, JAMBA_TRAIN_SEQ, JAMBA_TRAIN_STEPS
+    batches = _train_batches(cfg, B, S, steps, dev)
+    host, routes = _HostGrads(), Routes()
+    per = (2 * _attn_counts(cfg)[0], _attn_counts(cfg)[0])
+
+    def run(**kw):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        r = train_full(cfg, batches, **kw)
+        r.peak = torch.cuda.max_memory_allocated()
+        return r
+
+    flash_attention.launches = flash_attention_bwd.launches = 0
+    flash_attention.copies = flash_attention_bwd.copies = 0
+    kernels = run(keep=host.keep, routes=routes)
+    if any(n != per for n in kernels.launches) or kernels.copies != (0, 0):
+        raise AssertionError(f"{cfg.name} training: launches per step {kernels.launches}, "
+                             f"expected {per}; copies {kernels.copies}")
+    if not all(math.isfinite(x["loss"]) for x in kernels.losses):
+        raise AssertionError(f"{cfg.name} training: losses {kernels.losses}")
+    ms = _mean_ms(kernels)
+    print(f"[train] (e) {cfg.name} at its published widths, {cfg.n_layers} of 32 layers "
+          f"(d_model {cfg.d_model}, {cfg.moe_experts} experts, vocab {cfg.vocab_size}), "
+          f"{cfg.param_dtype}, {cfg.optimizer}, batches of {B} x {S} tokens, {steps} steps: "
+          f"{ms:.3f} ms a step after the first ({B * S / ms * 1e3:.1f} tokens/s; step 1 "
+          f"{kernels.step_s[0] * 1e3:.3f} ms), peak memory {kernels.peak} B; launches a step "
+          f"(forward, backward) {kernels.launches[0]}, aligning copies {kernels.copies}; losses "
+          f"{[x['loss'] for x in kernels.losses]}")
+    save = run(keep=host.equal, routes=routes.replay(), remat_policy="save_ffn")
+    differ = sorted(k for k, same in save.grads.items() if not same)
+    print(f"[train] (e) {cfg.name} with remat_policy='save_ffn': {_mean_ms(save):.3f} ms a step "
+          f"(none: {ms:.3f}), peak memory {save.peak} B (none: {kernels.peak}); losses "
+          f"{'equal' if save.losses == kernels.losses else 'differ'}, step-1 gradients differ in "
+          f"{len(differ)} of {len(save.grads)} leaves; launches a step {save.launches[0]}")
+    if save.losses != kernels.losses or differ or any(n != per for n in save.launches):
+        raise AssertionError(f"{cfg.name}: the save_ffn run differs from the first (losses "
+                             f"{save.losses} vs {kernels.losses}; gradients {differ[:6]}; "
+                             f"launches {save.launches})")
+    launches = (flash_attention.launches, flash_attention_bwd.launches)
+    plain = run(keep=lambda g: host.rel_l2(g, replace=True), routes=routes.replay(),
+                plain=True)
+    print(f"[train] (e) {cfg.name} with the plain attention: {_mean_ms(plain):.3f} ms a step, "
+          f"peak memory {plain.peak} B; MoE choices replayed, {int(routes.flips)} of "
+          f"{routes.choices} would have gone otherwise")
+    f64 = run(keep=host.rel_l2, routes=routes.replay(), plain=True, attention=f64_attention)
+    loss = [(abs(a["loss"] - b["loss"]), abs(b["loss"] - c["loss"]))
+            for a, b, c in zip(kernels.losses, plain.losses, f64.losses)]
+    grads = {k: (plain.grads[k], f64.grads[k]) for k in plain.grads}
+    _check_floor(f"{cfg.name} training cell", loss, grads, kernels.losses[0]["loss"])
     return launches
 
 
 def phase_train(dev, rows):
     """Training: (a) every arch's smoke config on the card against the
-    CPU, (b) the trainer CLI's resume, bit for bit, (c) the full-width
-    cell against its plain run within the float64 floor."""
+    CPU (the recurrent ones at 256 tokens too), (b) the trainer CLI's
+    resume, bit for bit, (c) the full-width dense cell against its plain
+    run within the float64 floor, (d) xlstm-350m whole, (e) jamba's period
+    at its published widths."""
     t0 = time.perf_counter()
     for arch in ARCH_IDS:
         _train_smoke_card_vs_cpu(get_smoke_config(arch), dev)
+    for arch in TRAIN_SMOKE_LONG_ARCHS:
+        _train_smoke_card_vs_cpu(get_smoke_config(arch), dev, seq=TRAIN_SMOKE_LONG_SEQ)
     _train_resume(dev)
     launches = _train_full_width(dev)
     rows["flash_attention"]["launches"] += launches[0]
     rows["flash_attention_bwd"]["launches"] = launches[1]
-    print(f"[train] phase ran {time.perf_counter() - t0:.1f} s")
+    t1 = time.perf_counter()
+    _train_xlstm(dev)
+    t2 = time.perf_counter()
+    launches = _train_jamba(dev)
+    rows["flash_attention"]["launches"] += launches[0]
+    rows["flash_attention_bwd"]["launches"] += launches[1]
+    print(f"[train] phase ran {time.perf_counter() - t0:.1f} s: (d) {t2 - t1:.1f} s, (e) "
+          f"{time.perf_counter() - t2:.1f} s")
 
 
 def _leaves(tree):

@@ -1,7 +1,8 @@
-"""Where the time goes in the coded, router, dense, zoo, fat-tree, job, cluster and train cells, on one NVIDIA card.
+"""Where the time goes in the coded, router, dense, zoo, fat-tree, job, cluster and training cells, on one NVIDIA card.
 
     python3 scripts/profile_cells.py \
-        --cell coded|router|prefill|decode|jamba|whisper|fattree|job|cluster|train [--steps N]
+        --cell coded|router|prefill|decode|jamba|whisper|fattree|job|cluster|train|
+               train_xlstm|train_jamba [--steps N]
 
 Runs one cell of `chip_smoke.py` under `torch.profiler` and prints the
 wall time per step, the card's busy and idle shares, the device
@@ -23,7 +24,10 @@ tick, over N runs (default 3) of one ring step as their sweeps run it
 `rings_overlapped` round, both jobs active, under WAM (`cluster`).  A
 `train` step is one AdamW step of `chip_smoke.py`'s training cell
 (qwen3-8b at published widths, 4 of 36 layers, 4 x 2,048 tokens; default
-3, after one warm-up step).  The wide cell has its own tool,
+3, after one warm-up step); `train_xlstm` one AdamW step of xlstm-350m
+whole at 8 x 2,048 tokens (default 1: ~6 x 10^6 device operations), and
+`train_jamba` one Adafactor step of jamba's period at 2 x 2,048 tokens
+(default 2), each after a warm-up step.  The wide cell has its own tool,
 `tools/torch_profile_wide.py`.
 """
 from __future__ import annotations
@@ -40,23 +44,16 @@ sys.path.insert(0, ROOT)
 import chip_smoke as cs  # noqa: E402
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
+from torch.autograd import DeviceType  # noqa: E402
 from torch.profiler import ProfilerActivity, profile  # noqa: E402
 
 from repro_torch.train.step import build_decode_step, build_prefill_step  # noqa: E402
 
 UNIT = {"coded": "message", "router": "window", "prefill": "prefill", "decode": "step",
         "jamba": "step", "whisper": "step", "fattree": "tick", "job": "tick", "cluster": "tick",
-        "train": "step"}
+        "train": "step", "train_xlstm": "step", "train_jamba": "step"}
 STEPS = {"coded": 2, "router": 50, "prefill": 3, "decode": 20, "jamba": 20, "whisper": 20,
-         "fattree": 64, "job": 3, "cluster": 3, "train": 3}
-
-
-def _device_us(evt) -> float:
-    for name in ("self_device_time_total", "self_cuda_time_total"):
-        v = getattr(evt, name, None)
-        if v is not None:
-            return float(v)
-    return 0.0
+         "fattree": 64, "job": 3, "cluster": 3, "train": 3, "train_xlstm": 1, "train_jamba": 2}
 
 
 def _serve_step(cell: str, dev):
@@ -134,9 +131,22 @@ def _ring_step(cell: str, dev):
     return step
 
 
-def _train_step(dev):
-    """One AdamW step of the training cell, on its state (updated in place)."""
-    cfg, batches = cs.train_cell(dev)
+def _train_cell(cell: str, dev):
+    """A training cell's config and batches: the dense cell (`train`),
+    xlstm-350m whole (`train_xlstm`) or jamba's period (`train_jamba`)."""
+    if cell == "train":
+        return cs.train_cell(dev)
+    if cell == "train_xlstm":
+        cfg = cs.get_config(cs.XLSTM_ARCH)
+        return cfg, cs._train_batches(cfg, cs.XLSTM_BATCH, cs.XLSTM_SEQ, 2, dev)
+    cfg = dataclasses.replace(cs.get_config("jamba-v0.1-52b"), n_layers=cs.JAMBA_LAYERS)
+    return cfg, cs._train_batches(cfg, cs.JAMBA_TRAIN_BATCH, cs.JAMBA_TRAIN_SEQ, 2, dev)
+
+
+def _train_step(cell: str, dev):
+    """One step of a training cell with its optimizer, on its state (updated
+    in place)."""
+    cfg, batches = _train_cell(cell, dev)
     opt = cs.make_optimizer(cfg.optimizer, lr=3e-3)
     params = cs.M.init_params(torch.Generator(device=dev).manual_seed(0), cfg)
     state = [cs.TrainState.create(params, opt.init(params))]
@@ -150,8 +160,8 @@ def _train_step(dev):
 def _step(cell: str, dev, steps: int):
     """One step of the cell, built once (for `fattree`, one run of `steps`
     ticks)."""
-    if cell == "train":
-        return _train_step(dev)
+    if cell.startswith("train"):
+        return _train_step(cell, dev)
     if cell == "fattree":
         return _fat_tree_run(steps, dev)
     if cell in ("job", "cluster"):
@@ -176,7 +186,8 @@ def main() -> int:
     ap.add_argument("--cell", choices=tuple(UNIT), required=True)
     ap.add_argument("--steps", type=int, default=None,
                     help="steps to profile (default: coded 2, router 50, prefill 3, fattree 64, jamba 20, "
-                    "whisper 20, decode 20, job 3, cluster 3, train 3)")
+                    "whisper 20, decode 20, job 3, cluster 3, train 3, train_xlstm 1, "
+                    "train_jamba 2)")
     ap.add_argument("--top", type=int, default=12, help="device operations to list (default 12)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -187,10 +198,19 @@ def main() -> int:
     dev = torch.device("cuda")
     print(cs.card_line())
     step = _step(args.cell, dev, steps)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
     step()  # warm up: kernel build, allocator, CUDA context
     torch.cuda.synchronize()
+    print(f"cell {args.cell}: the warm-up {unit} (builds included) {time.perf_counter() - t0:.3f} s "
+          f"unprofiled, peak memory {torch.cuda.max_memory_allocated()} B")
     calls = 1 if args.cell == "fattree" else steps  # a fattree call runs every tick
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    # xlstm's step runs ~7 x 10^6 device operations: their host-side events
+    # too would not fit the host's memory
+    activities = [ProfilerActivity.CUDA]
+    if args.cell != "train_xlstm":
+        activities.insert(0, ProfilerActivity.CPU)
+    with profile(activities=activities) as prof:
         t0 = time.perf_counter()
         ticks = [step() for _ in range(calls)]
         torch.cuda.synchronize()
@@ -198,19 +218,23 @@ def main() -> int:
     if args.cell in ("job", "cluster"):  # per tick, over every run's ticks
         print(f"cell {args.cell}: {calls} runs of {ticks[0]} ticks")
         steps = sum(ticks)
-    ops = [e for e in prof.key_averages()
-           if str(getattr(e, "device_type", "")).endswith("CUDA") and _device_us(e) > 0]
-    busy_us = sum(_device_us(e) for e in ops)
+    # the device's events, summed by name straight from the trace (building
+    # the profiler's per-event tables for millions of them takes minutes)
+    ops: dict = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == DeviceType.CUDA and e.duration_ns() > 0:
+            us, n = ops.get(e.name(), (0.0, 0))
+            ops[e.name()] = (us + e.duration_ns() / 1e3, n + 1)
+    busy_us = sum(us for us, _ in ops.values())
     print(f"cell {args.cell}: {steps} {unit}s, wall {wall_us / steps:.1f} us/{unit}")
     if busy_us == 0:
         print("device time: not measured (the profiler recorded no device time)")
         return 0
     print(f"device busy {busy_us / steps:.1f} us/{unit}, busy share {busy_us / wall_us:.4f}, "
           f"idle share {1 - busy_us / wall_us:.4f}, device operations "
-          f"{sum(e.count for e in ops) / steps:.1f}/{unit}")
-    for e in sorted(ops, key=_device_us, reverse=True)[:args.top]:
-        print(f"  {_device_us(e) / steps:9.2f} us/{unit}  {e.count / steps:6.1f}/{unit}  "
-              f"{e.key[:90]}")
+          f"{sum(n for _, n in ops.values()) / steps:.1f}/{unit}")
+    for name, (us, n) in sorted(ops.items(), key=lambda kv: kv[1][0], reverse=True)[:args.top]:
+        print(f"  {us / steps:9.2f} us/{unit}  {n / steps:6.1f}/{unit}  {name[:90]}")
     return 0
 
 

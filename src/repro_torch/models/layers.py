@@ -24,10 +24,13 @@ and gelu's constants too (measured op by op against the jitted reference).
 """
 from __future__ import annotations
 
+import contextlib
 import functools
+import threading
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import CheckpointPolicy
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels.flash_attention import flash_attention, flash_attention_plain
@@ -43,6 +46,9 @@ __all__ = [
     "cross_attention_decode",
     "init_mlp",
     "mlp",
+    "ffn_hidden",
+    "checkpoint_name",
+    "save_only_these_names",
     "matmul",
     "gelu",
     "sigmoid",
@@ -90,13 +96,51 @@ _GELU_CUBIC = float(torch.tensor(0.044715).to(COMPUTE_DTYPE))
 _GELU_SCALE = float(torch.tensor(np.sqrt(2 / np.pi)).to(COMPUTE_DTYPE))
 
 
+def _gelu_half(x: torch.Tensor) -> torch.Tensor:
+    """gelu's factor ``0.5 * (1 + tanh(c * (x + k * x**3)))``, every op in bf16."""
+    inner = x + (x * x * x) * _GELU_CUBIC
+    return (torch.tanh(inner * _GELU_SCALE) + 1.0) * 0.5
+
+
 def gelu(x: torch.Tensor) -> torch.Tensor:
     """``jax.nn.gelu`` (its default tanh approximation) on bf16 as the
     reference's compiled program rounds it: ``x * (0.5 * (1 + tanh(c * (x +
     k * x**3))))`` with bf16 constants c, k and every op rounded to bf16
     (bit for bit on every bf16 value but denormals, which XLA flushes)."""
-    inner = x + (x * x * x) * _GELU_CUBIC
-    return x * ((torch.tanh(inner * _GELU_SCALE) + 1.0) * 0.5)
+    return x * _gelu_half(x)
+
+
+_REGION = threading.local()  # the open `checkpoint_name` region's name, per thread
+
+
+@contextlib.contextmanager
+def checkpoint_name(name: str):
+    """The ops run inside make the tensor that the reference names ``name``
+    (``jax.ad_checkpoint.checkpoint_name``).  A checkpointed sublayer whose
+    remat policy keeps ``name`` (`save_only_these_names`) holds their
+    outputs through its backward instead of recomputing them.  Keep the
+    region to the op that makes the tensor: on the card a product or an
+    elementwise op is one op; on the CPU `matmul` is its f32 casts, the
+    product and the rounding, all kept."""
+    outer = getattr(_REGION, "name", None)
+    _REGION.name = name
+    try:
+        yield
+    finally:
+        _REGION.name = outer
+
+
+def save_only_these_names(*names: str):
+    """A selective-checkpoint policy (for
+    `torch.utils.checkpoint.create_selective_checkpoint_contexts`), the
+    counterpart of ``jax.checkpoint_policies.save_only_these_names``: the
+    ops run in a `checkpoint_name` region of one of ``names`` are kept,
+    every other op is recomputed."""
+    def policy(ctx, op, *args, **kwargs):
+        if getattr(_REGION, "name", None) in names:
+            return CheckpointPolicy.MUST_SAVE
+        return CheckpointPolicy.PREFER_RECOMPUTE
+    return policy
 
 
 _INV_127 = float(np.float32(1.0 / 127.0))
@@ -297,12 +341,22 @@ def init_mlp(generator: torch.Generator, cfg: ArchConfig, device, stack: tuple =
     return p
 
 
+def ffn_hidden(p: dict, x: torch.Tensor) -> torch.Tensor:
+    """An FFN's activation, the tensor the reference names ``ffn_h``: SwiGLU
+    ``silu(x w_gate) * (x w_up)`` where the parameters hold ``w_gate``, else
+    ``gelu(x w_up)``, rounded as the reference's compiled ones (`silu`,
+    `gelu`); batched for the MoE's experts.  Its last op runs in a
+    `checkpoint_name` region."""
+    if "w_gate" in p:
+        act, up = silu(matmul(x, _cast(p["w_gate"]))), matmul(x, _cast(p["w_up"]))
+    else:
+        up = matmul(x, _cast(p["w_up"]))
+        act = _gelu_half(up)
+    with checkpoint_name("ffn_h"):
+        return act * up
+
+
 def mlp(p: dict, cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
     """SwiGLU ``silu(x w_gate) * (x w_up) w_down`` where the parameters hold
-    ``w_gate``, else ``gelu(x w_up) w_down``; the activations round as the
-    reference's compiled ones (`silu`, `gelu`)."""
-    if "w_gate" in p:
-        h = silu(matmul(x, _cast(p["w_gate"]))) * matmul(x, _cast(p["w_up"]))
-    else:
-        h = gelu(matmul(x, _cast(p["w_up"])))
-    return matmul(h, _cast(p["w_down"]))
+    ``w_gate``, else ``gelu(x w_up) w_down`` (`ffn_hidden`)."""
+    return matmul(ffn_hidden(p, x), _cast(p["w_down"]))

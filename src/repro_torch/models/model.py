@@ -169,22 +169,24 @@ def _backbone_inputs(p: dict, cfg: ArchConfig, batch: Dict[str, torch.Tensor], *
 
 
 def train_loss(p: dict, cfg: ArchConfig, batch: Dict[str, torch.Tensor], *,
-               aux_weight: float = 0.01, remat: bool = True, plain: bool = False,
-               routes=None):
+               aux_weight: float = 0.01, remat: bool = True, remat_policy=None,
+               plain: bool = False, routes=None):
     """Next-token cross-entropy over the text positions, plus the MoE
     sublayers' load-balance loss: ``(loss, {"ce", "moe_aux"})``, f32
     scalars, differentiable in ``p``.  As the reference's `train_loss`: a
     vision model's patch prefix is not scored, the logits are f32 (the
     head in f32 over the weights it is given), and the aux term is
     ``aux_weight * aux`` over the MoE sublayer count.  ``remat``
-    checkpoints each sublayer (`run_stack_train`); ``plain`` runs the
+    checkpoints each sublayer (`run_stack_train`), keeping the tensors
+    that ``remat_policy`` names (None or ``"save_ffn"``, as the reference's:
+    the decoder's stack only); ``plain`` runs the
     attention kernels' plain versions; ``routes`` records or replays the
     MoE choices (`moe.Routes`)."""
     if routes is not None:
         routes.begin_pass()
     x, positions, enc_out = _backbone_inputs(p, cfg, batch, plain=plain, remat=remat)
     x, aux = run_stack_train(p["layers"], cfg, x, positions, encoder_out=enc_out, remat=remat,
-                             plain=plain, routes=routes)
+                             remat_policy=remat_policy, plain=plain, routes=routes)
     logits = _unembed(p, cfg, x)                       # [B, S, V] f32
     tokens = batch["tokens"]
     T = tokens.shape[1]

@@ -27,7 +27,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.models.layers import COMPUTE_DTYPE, _normal, gelu, matmul, silu
+from repro_torch.models.layers import COMPUTE_DTYPE, _normal, checkpoint_name, ffn_hidden, matmul
 
 __all__ = ["init_moe", "moe", "capacity", "Routes"]
 
@@ -160,11 +160,9 @@ def moe(p: dict, cfg: ArchConfig, x: torch.Tensor, routes: Routes | None = None,
 
     # gathers by `F.embedding`: its gradient sums in order (`model._embed_tokens`)
     xe = F.embedding(idx_ec, xt)                                       # [E, C, D]
-    if "w_gate" in p:
-        h = silu(matmul(xe, _cast(p["w_gate"]))) * matmul(xe, _cast(p["w_up"]))
-    else:
-        h = gelu(matmul(xe, _cast(p["w_up"])))
-    ye = matmul(h, _cast(p["w_down"]))                                 # [E, C, D]
+    h = ffn_hidden(p, xe)                                              # "ffn_h"
+    with checkpoint_name("ffn_out"):
+        ye = matmul(h, _cast(p["w_down"]))                             # [E, C, D]
     ye = ye * gate_ec[..., None].to(ye.dtype)
 
     # each token's slot in each expert's list, -1 where it was not taken

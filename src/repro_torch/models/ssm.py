@@ -1,38 +1,50 @@
 """State-space and recurrent blocks: the port of the JAX package's
 `models/ssm.py`, Mamba (jamba) and xLSTM's mLSTM and sLSTM (xlstm-350m).
 
-A full-sequence form (prefill, which returns the final recurrent state;
-training takes its output) and the one-token decode update.  Every op is
-out of place, so autograd differentiates the full-sequence form;
-the scans are Python loops over time, and their backward keeps every
-step's state.  The reference's time-chunked gradient checkpointing
-(`chunked_scan`) is a memory knob that this port leaves out (ROADMAP).
+Three forms share each block's parameters and arithmetic: prefill (a full
+sequence; returns the final recurrent state too), decode (one token) and
+the training form (``mamba``, ``mlstm``, ``slstm``: a full sequence, the
+output only).  Every op is out of place, so autograd differentiates them.
+Serving runs under ``no_grad``.  The training forms scan time with
+`chunked_scan`, the reference's time-axis gradient checkpointing: chunks
+of ``min(64, S)`` steps, each under a non-reentrant checkpoint, so that
+the backward keeps one carry a chunk and recomputes one chunk at a time,
+where the prefill forms' backward would keep every step's state (the
+mLSTM's matrix memory and outer product, ``[B, H, dh, dh]`` each).  The
+chunks run the prefill's ops in its order, so a training form's output
+and gradients are bit-equal to the prefill's on one device.
 
 Scan form.  The reference scans Mamba with an ``associative_scan`` inside
 each 64-step chunk, which has its own f32 order.  The port scans every
 recurrence by a plain loop over time, in f32: ``h = da h + db`` a step for
 Mamba (its ``da``, ``db`` formed a chunk at a time), the reference's own
 step functions for mLSTM and sLSTM.  States agree with the reference's to
-f32 rounding (the tests hold them to 2e-5).  Mamba still requires S to
-tile by ``min(64, S)``, as the reference does.
+f32 rounding (the tests hold them to 2e-5).  Mamba's prefill and every
+training form require S to tile by ``min(64, S)``, as the reference does.
 
 bf16 numerics follow the reference's compiled program on the CPU (`silu`
 rounds every op; the sLSTM pre-activation reads the bf16 sum of its input
 and recurrent parts unrounded, as XLA fuses it); f32 parameters (``a_log``,
-``d_skip``, ``dt_bias``, ``b_if``, ``bias``) are read in f32.
+``d_skip``, ``dt_bias``, ``b_if``, ``bias``) are read in f32, and in the
+dtype training casts them to: ``exp(a_log)`` is taken in ``a_log``'s own
+dtype, bf16 after the train step's cast, as the reference's.
 """
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models.layers import COMPUTE_DTYPE, _normal, matmul, rms_norm, sigmoid, silu
 
 __all__ = [
-    "init_mamba", "mamba_prefill", "mamba_decode", "mamba_init_state",
-    "init_mlstm", "mlstm_prefill", "mlstm_decode", "mlstm_init_state",
-    "init_slstm", "slstm_prefill", "slstm_decode", "slstm_init_state",
+    "chunked_scan",
+    "init_mamba", "mamba", "mamba_prefill", "mamba_decode", "mamba_init_state",
+    "init_mlstm", "mlstm", "mlstm_prefill", "mlstm_decode", "mlstm_init_state",
+    "init_slstm", "slstm", "slstm_prefill", "slstm_decode", "slstm_init_state",
     "softplus",
 ]
 
@@ -46,6 +58,42 @@ def _cast(x: torch.Tensor) -> torch.Tensor:
 def softplus(x: torch.Tensor) -> torch.Tensor:
     """``jax.nn.softplus`` (``logaddexp(x, 0)``): ``max(x, 0) + log1p(exp(-|x|))``."""
     return torch.clamp(x, min=0) + torch.log1p(torch.exp(-x.abs()))
+
+
+def _chunk(S: int) -> int:
+    chunk = min(_CHUNK, S)
+    if S % chunk:
+        raise ValueError(f"S={S} must tile by {chunk}")
+    return chunk
+
+
+def chunked_scan(scan, carry: tuple, xs: tuple, chunk: int):
+    """Time-axis gradient checkpointing, the reference's `chunked_scan`.
+
+    ``scan(*carry, *xs_c) -> (*carry', ys_c)`` runs a recurrence over the
+    steps of ``xs_c``, tensors ``[B, c, ...]`` with time on axis 1.  Here it
+    runs over ``xs`` (``[B, S, ...]``) ``chunk`` steps at a time, each chunk
+    under a non-reentrant `torch.utils.checkpoint`; returns ``(carry, ys)``,
+    the chunks' ys joined on axis 1.  The backward keeps each chunk's
+    incoming carry and recomputes one chunk at a time: ``S / chunk`` carries
+    plus one chunk's saved steps, for one more forward of the recurrence.
+    A chunk takes the whole sequences and slices its steps itself, so every
+    view a step saves is made in the chunk.  S must tile by ``chunk``."""
+    S = xs[0].shape[1]
+    if S % chunk:
+        raise ValueError(f"S={S} must tile by {chunk}")
+    n = len(carry)
+
+    def body(s0, *args):
+        return scan(*args[:n], *(x[:, s0:s0 + chunk] for x in args[n:]))
+
+    ys = []
+    for s0 in range(0, S, chunk):
+        # the recurrences draw no random numbers: no RNG state to replay
+        *carry, y = checkpoint(body, s0, *carry, *xs, use_reentrant=False,
+                               preserve_rng_state=False)
+        ys.append(y)
+    return tuple(carry), torch.cat(ys, dim=1)
 
 
 def _dt_rank(cfg: ArchConfig) -> int:
@@ -123,7 +171,7 @@ def _mamba_mix(p: dict, cfg: ArchConfig, x: torch.Tensor, conv: torch.Tensor | N
     sig = sigmoid(conv_out)
     xc = conv_out * sig
     dt, bmat, cmat = _mamba_gates(p, cfg, xc)
-    a = -torch.exp(p["a_log"].float())                                  # [I, N]
+    a = -torch.exp(p["a_log"]).float()                                  # [I, N]
     return z, xc, conv_out.float() * sig.float(), dt, bmat, cmat, a, conv_carry
 
 
@@ -132,27 +180,44 @@ def _mamba_out(p: dict, y: torch.Tensor, xc: torch.Tensor, z: torch.Tensor) -> t
     return matmul(y.to(COMPUTE_DTYPE) * silu(z), _cast(p["out_proj"]))
 
 
+def _mamba_scan(a: torch.Tensor, h, dt, xdt, bmat, cmat):
+    """Mamba's recurrence over one chunk's steps (``[B, c, ...]``): ``da``
+    and ``db`` formed for the chunk, then ``h = da h + db`` a step in f32.
+    Returns (h, y [B, c, I])."""
+    da = torch.exp(dt[..., None] * a)                                   # [B, c, I, N]
+    db = xdt[..., None] * bmat[:, :, None, :]
+    hs = []
+    for da_t, db_t in zip(da.unbind(1), db.unbind(1)):
+        h = torch.addcmul(db_t, da_t, h)
+        hs.append(h)
+    return h, torch.einsum("bcin,bcn->bci", torch.stack(hs, dim=1), cmat)
+
+
 def mamba_prefill(p: dict, cfg: ArchConfig, x: torch.Tensor):
     """Full-sequence selective SSM.  x: [B, S, D] -> (y [B, S, D], state)."""
     B, S, _ = x.shape
-    chunk = min(_CHUNK, S)
-    if S % chunk:
-        raise ValueError(f"S={S} must tile by {chunk}")
+    chunk = _chunk(S)
     z, xc, xc32, dt, bmat, cmat, a, conv_carry = _mamba_mix(p, cfg, x, None)
     xdt = dt * xc32
     h = torch.zeros((B, *a.shape), dtype=torch.float32, device=x.device)
     ys = []
     for s0 in range(0, S, chunk):
         sl = slice(s0, s0 + chunk)
-        da = torch.exp(dt[:, sl, :, None] * a)                          # [B, c, I, N]
-        db = xdt[:, sl, :, None] * bmat[:, sl, None, :]
-        hs = []
-        for t in range(chunk):
-            h = torch.addcmul(db[:, t], da[:, t], h)
-            hs.append(h)
-        ys.append(torch.einsum("bcin,bcn->bci", torch.stack(hs, dim=1), cmat[:, sl]))
+        h, y = _mamba_scan(a, h, dt[:, sl], xdt[:, sl], bmat[:, sl], cmat[:, sl])
+        ys.append(y)
     y = _mamba_out(p, torch.cat(ys, dim=1), xc32, z)
     return y, {"h": h, "conv": conv_carry}
+
+
+def mamba(p: dict, cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
+    """The training form: `mamba_prefill`'s output, its chunks checkpointed
+    (`chunked_scan`).  x: [B, S, D] -> y [B, S, D]."""
+    B, S, _ = x.shape
+    z, xc, xc32, dt, bmat, cmat, a, _ = _mamba_mix(p, cfg, x, None)
+    h = torch.zeros((B, *a.shape), dtype=torch.float32, device=x.device)
+    _, y = chunked_scan(functools.partial(_mamba_scan, a), (h,), (dt, dt * xc32, bmat, cmat),
+                        _chunk(S))
+    return _mamba_out(p, y, xc32, z)
 
 
 def mamba_decode(p: dict, cfg: ArchConfig, x: torch.Tensor, state: dict):
@@ -231,21 +296,41 @@ def _mlstm_out(p: dict, cfg: ArchConfig, h: torch.Tensor, z: torch.Tensor) -> to
     return matmul(h, _cast(p["down"]))
 
 
-def _mlstm_run(p: dict, cfg: ArchConfig, x: torch.Tensor, state: dict):
-    xin, z = matmul(x, _cast(p["up"])).chunk(2, dim=-1)
-    q, k, v, li, lf = _mlstm_qkvg(p, xin)
-    C, n, m = state["C"], state["n"], state["m"]
+def _mlstm_scan(C, n, m, q, k, v, li, lf):
+    """The mLSTM recurrence over the steps of q, k, v ``[B, c, H, dh]`` and
+    the log gates ``[B, c, H]``: (C, n, m, h [B, c, H, dh])."""
     hs = []
-    for t in range(x.shape[1]):
-        C, n, m, h_t = _mlstm_step(C, n, m, q[:, t], k[:, t], v[:, t], li[:, t], lf[:, t])
+    for q_t, k_t, v_t, li_t, lf_t in zip(*(t.unbind(1) for t in (q, k, v, li, lf))):
+        C, n, m, h_t = _mlstm_step(C, n, m, q_t, k_t, v_t, li_t, lf_t)
         hs.append(h_t)
-    h = torch.stack(hs, dim=1).flatten(2)                                # [B, S, inner]
-    return _mlstm_out(p, cfg, h, z), {"C": C, "n": n, "m": m}
+    return C, n, m, torch.stack(hs, dim=1)
+
+
+def _mlstm_in(p: dict, x: torch.Tensor):
+    """x [B, S, D] -> (z, (q, k, v, log i, log f))."""
+    xin, z = matmul(x, _cast(p["up"])).chunk(2, dim=-1)
+    return z, _mlstm_qkvg(p, xin)
+
+
+def _mlstm_run(p: dict, cfg: ArchConfig, x: torch.Tensor, state: dict):
+    z, qkvg = _mlstm_in(p, x)
+    C, n, m, h = _mlstm_scan(state["C"], state["n"], state["m"], *qkvg)
+    return _mlstm_out(p, cfg, h.flatten(2), z), {"C": C, "n": n, "m": m}
 
 
 def mlstm_prefill(p: dict, cfg: ArchConfig, x: torch.Tensor):
     """Full-sequence mLSTM block.  x: [B, S, D] -> (y, state)."""
     return _mlstm_run(p, cfg, x, mlstm_init_state(cfg, x.shape[0], x.device))
+
+
+def mlstm(p: dict, cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
+    """The training form: `mlstm_prefill`'s output, its chunks checkpointed
+    (`chunked_scan`; S must tile by ``min(64, S)``).  x: [B, S, D] -> y."""
+    z, qkvg = _mlstm_in(p, x)
+    state = mlstm_init_state(cfg, x.shape[0], x.device)
+    _, h = chunked_scan(_mlstm_scan, (state["C"], state["n"], state["m"]), qkvg,
+                        _chunk(x.shape[1]))
+    return _mlstm_out(p, cfg, h.flatten(2), z)
 
 
 def mlstm_decode(p: dict, cfg: ArchConfig, x: torch.Tensor, state: dict):
@@ -299,21 +384,40 @@ def _slstm_step(p: dict, cfg: ArchConfig, c, n, m, h, xw_t):
     return c, n, m_new, h
 
 
+def _slstm_scan(p: dict, cfg: ArchConfig, c, n, m, h, xw):
+    """The sLSTM recurrence over the steps of xw ``[B, c, 4D]``:
+    (c, n, m, h, hs [B, c, D])."""
+    hs = []
+    for xw_t in xw.unbind(1):
+        c, n, m, h = _slstm_step(p, cfg, c, n, m, h, xw_t)
+        hs.append(h)
+    return c, n, m, h, torch.stack(hs, dim=1)
+
+
+def _slstm_out(p: dict, cfg: ArchConfig, hs: torch.Tensor) -> torch.Tensor:
+    hh = rms_norm(hs.to(COMPUTE_DTYPE), p["norm"], cfg.norm_eps)
+    return matmul(silu(matmul(hh, _cast(p["ffn_gate"]))), _cast(p["ffn_down"]))
+
+
 def _slstm_run(p: dict, cfg: ArchConfig, x: torch.Tensor, state: dict):
     xw = matmul(x, _cast(p["w_x"]))                                            # [B, S, 4D]
-    c, n, m, h = (state[k] for k in ("c", "n", "m", "h"))
-    hs = []
-    for t in range(x.shape[1]):
-        c, n, m, h = _slstm_step(p, cfg, c, n, m, h, xw[:, t])
-        hs.append(h)
-    hh = rms_norm(torch.stack(hs, dim=1).to(COMPUTE_DTYPE), p["norm"], cfg.norm_eps)
-    out = matmul(silu(matmul(hh, _cast(p["ffn_gate"]))), _cast(p["ffn_down"]))
-    return out, {"c": c, "n": n, "m": m, "h": h}
+    c, n, m, h, hs = _slstm_scan(p, cfg, *(state[k] for k in ("c", "n", "m", "h")), xw)
+    return _slstm_out(p, cfg, hs), {"c": c, "n": n, "m": m, "h": h}
 
 
 def slstm_prefill(p: dict, cfg: ArchConfig, x: torch.Tensor):
     """Full-sequence sLSTM block (sequential over S).  x: [B, S, D]."""
     return _slstm_run(p, cfg, x, slstm_init_state(cfg, x.shape[0], x.device))
+
+
+def slstm(p: dict, cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
+    """The training form: `slstm_prefill`'s output, its chunks checkpointed
+    (`chunked_scan`; S must tile by ``min(64, S)``).  x: [B, S, D] -> y."""
+    xw = matmul(x, _cast(p["w_x"]))
+    state = slstm_init_state(cfg, x.shape[0], x.device)
+    _, hs = chunked_scan(functools.partial(_slstm_scan, p, cfg),
+                         tuple(state[k] for k in ("c", "n", "m", "h")), (xw,), _chunk(x.shape[1]))
+    return _slstm_out(p, cfg, hs)
 
 
 def slstm_decode(p: dict, cfg: ArchConfig, x: torch.Tensor, state: dict):

@@ -10,8 +10,11 @@ reference's ``lax.scan``.  Three modes share the parameters:
 
 * train   - a full sequence without caches, differentiable, each sublayer
             checkpointed (recomputed in the backward) as the reference's
-            ``jax.checkpoint`` per sublayer; returns the MoE aux loss too
-            (whisper's encoder runs it non-causal);
+            ``jax.checkpoint`` per sublayer, and inside a recurrent
+            sublayer each 64-step chunk of its scan (`ssm.chunked_scan`);
+            ``remat_policy="save_ffn"`` keeps the FFN's named products;
+            returns the MoE aux loss too (whisper's encoder runs it
+            non-causal);
 * prefill - the full prompt, filling every sublayer's cache or state;
 * decode  - one token against the (ring-buffer) KV caches and states.
 
@@ -35,8 +38,14 @@ further from it, and jamba's and xlstm's gradients twice as far).
 """
 from __future__ import annotations
 
+import functools
+
 import torch
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (
+    checkpoint,
+    create_selective_checkpoint_contexts,
+    noop_context_fn,
+)
 
 from repro_torch.configs.base import ArchConfig, LayerSpec
 from repro_torch.models import moe as moe_mod
@@ -52,6 +61,7 @@ from repro_torch.models.layers import (
     kv_quantize,
     mlp,
     rms_norm,
+    save_only_these_names,
 )
 
 __all__ = [
@@ -202,9 +212,20 @@ def _mixer_train(p, cfg: ArchConfig, spec: LayerSpec, x, positions, enc_out, *, 
     elif spec.kind == "xattn":
         y, _, _ = attention(p["mixer"], cfg, h, positions, rotary=False,
                             kv=_encoder_kv(p["mixer"], enc_out), plain=plain)
-    else:
-        y = getattr(ssm, f"{spec.kind}_prefill")(p["mixer"], cfg, h)[0]
+    else:  # the training forms: time chunks checkpointed (`ssm.chunked_scan`)
+        y = getattr(ssm, spec.kind)(p["mixer"], cfg, h)
     return x.to(COMPUTE_DTYPE).float() + y.float()
+
+
+# remat_policy -> the names (`layers.checkpoint_name`) a sublayer's checkpoint keeps
+REMAT_POLICIES = {None: (), "save_ffn": ("ffn_h", "ffn_out")}
+
+
+def _context_fn(remat_policy):
+    names = REMAT_POLICIES[remat_policy]
+    if not names:
+        return noop_context_fn
+    return functools.partial(create_selective_checkpoint_contexts, save_only_these_names(*names))
 
 
 def run_stack_train(params: dict, cfg: ArchConfig, x: torch.Tensor, positions: torch.Tensor,
@@ -218,11 +239,18 @@ def run_stack_train(params: dict, cfg: ArchConfig, x: torch.Tensor, positions: t
     activations are recomputed in the backward, so the attention kernel's
     forward runs twice a step.  ``period`` defaults to the config's
     (whisper's encoder passes its own, with ``causal=False``); ``routes``
-    records or replays the MoE choices.  ``remat_policy="save_ffn"`` (keep
-    the FFN's products) is not ported (ROADMAP)."""
-    if remat_policy is not None:
-        raise NotImplementedError(f"remat_policy={remat_policy!r} is not ported (ROADMAP, "
-                                  "queue 1, item 1 (b))")
+    records or replays the MoE choices.  ``remat_policy="save_ffn"`` keeps
+    the tensors the reference names ``ffn_h`` (the FFN's activation, the
+    MLP's and the experts') and ``ffn_out`` (the experts' down product)
+    through each checkpointed sublayer's backward, which then skips the ops
+    that made them, and recomputes everything else (a selective checkpoint,
+    `layers.save_only_these_names`); losses and gradients are bit-equal to
+    ``remat_policy=None``'s.  Without ``remat`` the policy has nothing to
+    do, as in the reference."""
+    if remat_policy not in REMAT_POLICIES:
+        raise ValueError(f"remat_policy={remat_policy!r}: expected one of "
+                         f"{', '.join(map(repr, REMAT_POLICIES))}")
+    context_fn = _context_fn(remat_policy)
     period = period or cfg.period
     for spec in period:
         _check_spec(spec)
@@ -237,7 +265,8 @@ def run_stack_train(params: dict, cfg: ArchConfig, x: torch.Tensor, positions: t
                 return out, (torch.zeros_like(aux) if a is None else a)
 
             if remat:
-                x, a = checkpoint(run, p_n[f"sub{i}"], x, use_reentrant=False)
+                x, a = checkpoint(run, p_n[f"sub{i}"], x, use_reentrant=False,
+                                  context_fn=context_fn)
             else:
                 x, a = run(p_n[f"sub{i}"], x)
             aux = aux + a

@@ -7,7 +7,9 @@ every other leaf keeps a full ``vr`` and a placeholder ``vc`` of one
 zero.  The update is clipped to an RMS of ``clip_threshold``, weight
 decay is decoupled, and a bf16 parameter (the MoE giants') is updated in
 f32 and rounded back.  As `adamw`, the update writes into the state's and
-the parameters' own tensors.
+the parameters' own tensors.  A leaf's update holds at most three
+leaf-sized f32 temporaries at once (jamba's stacked expert matrices are
+1.9 GB each in bf16 at their published widths).
 """
 from __future__ import annotations
 
@@ -65,18 +67,28 @@ def adafactor_update(grads, state: AdafactorState, params, cfg: AdafactorConfig,
     eps1 = cfg.eps1
     for p, g, vr, vc in zip(tree.leaves(params), tree.leaves(grads), tree.leaves(state.vr),
                             tree.leaves(state.vc)):
+        # the reference's ops in its order; the leaf-sized f32 temporaries
+        # are freed, or updated in place, as soon as they are used
         g = g.float()
-        g2 = g * g + eps1
+        g2 = g * g
+        g2.add_(eps1)
         if _factored(p):
             vr.copy_(beta2 * vr + (1 - beta2) * g2.mean(dim=-1))
             vc.copy_(beta2 * vc + (1 - beta2) * g2.mean(dim=-2))
+            del g2
             r = vr / torch.clamp(vr.mean(dim=-1, keepdim=True), min=eps1)
-            u = g * torch.rsqrt(r)[..., None] * torch.rsqrt(torch.clamp(vc, min=eps1))[..., None, :]
+            u = g * torch.rsqrt(r)[..., None]
+            u.mul_(torch.rsqrt(torch.clamp(vc, min=eps1))[..., None, :])
         else:
-            vr.copy_(beta2 * vr + (1 - beta2) * g2)
+            vr.mul_(beta2).add_(g2.mul_(1 - beta2))
+            del g2
             u = g * torch.rsqrt(torch.clamp(vr, min=eps1))
+        del g
         # update-RMS clipping
         rms = torch.sqrt(torch.mean(u * u) + 1e-30)
-        u = u / torch.clamp(rms / cfg.clip_threshold, min=1.0)
-        p.copy_((p.float() - lr * (u + cfg.weight_decay * p.float())).to(p.dtype))
+        u.div_(torch.clamp(rms / cfg.clip_threshold, min=1.0))
+        u.add_(p.float() * cfg.weight_decay)
+        u.mul_(lr)
+        p.copy_(p.float() - u)
+        del u
     return params, AdafactorState(step=step, vr=state.vr, vc=state.vc)

@@ -34,8 +34,9 @@ def _compute_copy(params):
 
 
 def build_train_step(cfg: ArchConfig, optimizer: Optimizer, *, microbatch: Optional[int] = None,
-                     remat: bool = True, schedule: Callable = cosine_schedule,
-                     cast_compute: bool = True, plain: bool = False, routes=None):
+                     remat: bool = True, remat_policy=None,
+                     schedule: Callable = cosine_schedule, cast_compute: bool = True,
+                     plain: bool = False, routes=None):
     """Returns ``train_step(state, batch) -> (state', metrics)``, metrics
     ``loss``, ``ce``, ``moe_aux`` and ``lr_scale`` (0-d tensors on the
     device).  The optimizer updates the state's tensors in place.
@@ -45,7 +46,8 @@ def build_train_step(cfg: ArchConfig, optimizer: Optimizer, *, microbatch: Optio
     ``train_step.grads(params, batch) -> (loss, metrics, grads)`` (grads a
     tree like params) and ``train_step.apply(state, loss, metrics, grads)
     -> (state', metrics)``.  ``cast_compute`` casts every f32 leaf to bf16
-    at step entry, as the reference does; ``plain`` runs the attention
+    at step entry, as the reference does; ``remat_policy`` (None or
+    ``"save_ffn"``) is `models.model.train_loss`'s; ``plain`` runs the attention
     kernels' plain versions; ``routes`` records or replays the MoE choices
     (`moe.Routes`).  The reference's ``unroll`` is an XLA compile knob with
     no counterpart here."""
@@ -53,7 +55,8 @@ def build_train_step(cfg: ArchConfig, optimizer: Optimizer, *, microbatch: Optio
     def loss_fn(params, batch):
         if cast_compute:
             params = _compute_copy(params)
-        return M.train_loss(params, cfg, batch, remat=remat, plain=plain, routes=routes)
+        return M.train_loss(params, cfg, batch, remat=remat, remat_policy=remat_policy,
+                            plain=plain, routes=routes)
 
     def value_and_grad(params, batch):
         leaves = tree.map_leaves(lambda p: p.detach().requires_grad_(), params)

@@ -16,6 +16,9 @@ the rest, so nothing leaks into `test_train.py`'s
 scopes it to that module.  `reference_zoo` is the context both fixtures
 run in.  `configs` names the zoo's cases for both packages.
 
+`recorded_top_k` records the reference's MoE choices as its compiled
+program runs, and `replay_routes` hands them to the port (`moe.Routes`).
+
 `one_torch_thread` runs a module's tests with one torch intra-op thread
 (restored after): the suite runs six workers on the machine's cores, and
 six processes of one thread each run a smoke model's training step ~80x
@@ -119,3 +122,45 @@ def one_torch_thread():
         yield
     finally:
         torch.set_num_threads(before)
+
+
+@contextlib.contextmanager
+def recorded_top_k(calls: list):
+    """``jax.lax.top_k`` reporting each call's indices to ``calls`` as the
+    compiled program runs (restored on exit)."""
+    import jax
+    import numpy as np
+
+    orig = jax.lax.top_k
+
+    def top_k(x, k):
+        values, idx = orig(x, k)
+        jax.debug.callback(lambda i: calls.append(np.asarray(i)), idx)
+        return values, idx
+
+    jax.lax.top_k = top_k
+    try:
+        yield
+    finally:
+        jax.lax.top_k = orig
+
+
+def replay_routes(cfg, calls):
+    """The port's routes (`moe.Routes`) holding the reference's forward
+    choices: two top_k calls a MoE sublayer (tokens' experts, experts'
+    tokens), in order, for the one forward pass of a training step (the
+    reference's backward recomputes them after the forward's)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.models.moe import Routes
+
+    routes = Routes()
+    it = iter(calls)
+    for n in range(cfg.n_periods):
+        for i, spec in enumerate(cfg.period):
+            if spec.ffn == "moe":
+                for which in ("tokens", "experts"):
+                    idx = np.array(next(it)[0])  # the one data group's choices
+                    routes.sites[(0, n, i, which)] = torch.from_numpy(idx).long()
+    return routes.replay()

@@ -24,8 +24,6 @@ the reference's compiled rounding (`run_stack_train`), and XLA's and
 torch's f32 exp, rsqrt and sums differ in an ulp now and then, which
 flips a bf16 rounding.
 """
-import contextlib
-
 import numpy as np
 import pytest
 
@@ -34,14 +32,14 @@ torch = pytest.importorskip("torch")
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
-from _torch_zoo_reference import jax_train, one_torch_thread  # noqa: E402,F401
+from _torch_zoo_reference import (  # noqa: E402,F401
+    jax_train, one_torch_thread, recorded_top_k, replay_routes)
 from repro.configs import registry as jregistry  # noqa: E402
 from repro_torch import convert, tree  # noqa: E402
 from repro_torch.configs import registry  # noqa: E402
 from repro_torch.data.pipeline import SyntheticLM  # noqa: E402
 from repro_torch.launch.train import modality_stubs  # noqa: E402
 from repro_torch.models import model as M  # noqa: E402
-from repro_torch.models.moe import Routes  # noqa: E402
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -56,40 +54,6 @@ ARCHS = ("qwen1.5-4b", "starcoder2-3b", "dbrx-132b", "arctic-480b", "jamba-v0.1-
 LOSS_TOL = 2e-3
 GRAD_TOL = {"jamba-v0.1-52b": 0.1}
 B, S = 4, 64
-
-
-@contextlib.contextmanager
-def _recorded_top_k(calls: list):
-    """``jax.lax.top_k`` reporting each call's indices to ``calls`` as the
-    compiled program runs (restored on exit)."""
-    orig = jax.lax.top_k
-
-    def top_k(x, k):
-        values, idx = orig(x, k)
-        jax.debug.callback(lambda i: calls.append(np.asarray(i)), idx)
-        return values, idx
-
-    jax.lax.top_k = top_k
-    try:
-        yield
-    finally:
-        jax.lax.top_k = orig
-
-
-def _replay(cfg, calls) -> Routes:
-    """The port's routes holding the reference's forward choices: two
-    top_k calls a MoE sublayer (tokens' experts, experts' tokens), in
-    order, for the one forward pass of the step (the reference's backward
-    recomputes them after the forward's)."""
-    routes = Routes()
-    it = iter(calls)
-    for n in range(cfg.n_periods):
-        for i, spec in enumerate(cfg.period):
-            if spec.ffn == "moe":
-                for which in ("tokens", "experts"):
-                    idx = np.array(next(it)[0])  # the one data group's choices
-                    routes.sites[(0, n, i, which)] = torch.from_numpy(idx).long()
-    return routes.replay()
 
 
 def _batch(cfg):
@@ -119,7 +83,7 @@ def test_train_loss_and_gradients_match_reference(jax_train, arch):
         return J.model.train_loss(p, jcfg, b)
 
     calls: list = []
-    with _recorded_top_k(calls):
+    with recorded_top_k(calls):
         (loss, metrics), grads = jax.jit(jax.value_and_grad(loss_fn, has_aux=True))(params,
                                                                                      batch)
         jax.effects_barrier()
@@ -129,7 +93,7 @@ def test_train_loss_and_gradients_match_reference(jax_train, arch):
     p = tree.map_leaves(lambda t: t.to(torch.bfloat16) if t.dtype == torch.float32 else t,
                         convert.model_params(jax.tree.map(np.asarray, params)))
     leaves = tree.map_leaves(lambda t: t.requires_grad_(), p)
-    routes = _replay(cfg, calls[:2 * n_moe]) if n_moe else None
+    routes = replay_routes(cfg, calls[:2 * n_moe]) if n_moe else None
     got_loss, got_metrics = M.train_loss(leaves, cfg, convert.model_cache(batch), routes=routes)
     got_grads = torch.autograd.grad(got_loss, tree.leaves(leaves))
 
