@@ -176,7 +176,20 @@ Phases (the first that fails ends the run with a nonzero exit):
    `torch.profiler` and its design's 7-product floor beside the
    5-product bound.
 
-Each path of phases 4-11 runs with the kernels' launch counts set to 0
+12. The examples (phase `examples`, ~30 s): every
+   `examples/torch_*.py` at the sizes its CPU tests run (the module's
+   `SMOKE`), on the card and then on the CPU: the six network examples'
+   `main` (quickstart, telemetry, topology scenarios, collective cct, job
+   ETTR, cluster contention) return equal numbers (the telemetry exports
+   byte-equal) and launch `spray_select` (and `link_fold` where they run
+   the shared fabric) on the card; `serve_batched`'s `serve` on one set of
+   smoke qwen3-8b weights drawn on the CPU, the card teacher-forced on the
+   CPU's tokens, within `MODEL_TOL` (one `flash_attention` a layer in
+   prefill, one `flash_decode` a layer a step); `train_tiny_lm`'s `train`
+   from one set of weights, losses within `TRAIN_LOSS_TOL` (two
+   `flash_attention` and one `flash_attention_bwd` a layer a step).
+
+Each path of phases 4-12 runs with the kernels' launch counts set to 0
 just before it and read just after; a kernel row's ``launches`` is its
 total over those paths (the comparisons of phases 5 and 6 not counted).  The
 last lines are the card's name and power limit, one JSON object with a
@@ -188,10 +201,13 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import hashlib
+import importlib.util
+import io
 import json
 import math
 import os
 import re
+import shutil
 import subprocess
 import sys
 import time
@@ -444,13 +460,14 @@ TRAIN_FLOOR_RATIO = 4.0
 # the smoke configs whose scans run more than one 64-step chunk: also trained
 # at 256 tokens, card against CPU
 TRAIN_SMOKE_LONG_ARCHS, TRAIN_SMOKE_LONG_SEQ = ("xlstm-350m", "jamba-v0.1-52b"), 128
-# their step-1 gradients within 0.2 relative L2 per leaf there (losses 2e-3
-# as at 64): bf16 roundings run through twice the recurrent steps and
-# compound through the layers, and the port itself stands up to 0.083
-# (xlstm, an mLSTM gate) and 0.18 (jamba, a router) from the JAX reference
-# at 4 x 128 tokens on the CPU (0.013 and 0.054 at 64), as the card may
-# stand from the CPU
-TRAIN_LONG_GRAD_TOL = 0.2
+# their step-1 gradients within 0.15 relative L2 per leaf there (losses
+# 2e-3 as at 64): bf16 roundings run through twice the recurrent steps and
+# compound through the layers.  On an H100 the card has stood 0.0789-0.1006
+# (xlstm) and 0.0408-0.0441 (jamba) from the CPU at 4 x 128 tokens; on the
+# CPU the port stands 0.082 (xlstm, 2.0x its float64-recurrence floor) and
+# 0.18 (jamba, whose forward departs) from the JAX reference
+# (tests/test_torch_tie_gradients.py)
+TRAIN_LONG_GRAD_TOL = 0.15
 # the recurrent training cell: xlstm-350m whole at its published widths (24
 # layers, d 1,024, 4 heads, vocab 50,304; arXiv:2405.04517), f32 weights,
 # AdamW at the CLI's defaults, SyntheticLM batches of 8 x 2,048 tokens
@@ -468,6 +485,14 @@ XLSTM_CMP_SEQ, XLSTM_CMP_STEPS = 256, 1
 # config's), batches of 2 x 2,048 tokens, 2 steps (four runs of it, with
 # 27 GB of gradients through the host for each, take ~100 s), step 2 timed
 JAMBA_TRAIN_BATCH, JAMBA_TRAIN_SEQ, JAMBA_TRAIN_STEPS = 2, 2048, 2
+# the examples (phase `examples`): every examples/torch_*.py at the sizes its
+# CPU tests run (the module's SMOKE, cut so that the phase takes well under a
+# minute: the ticks are host-bound), on the card and then on the CPU; the
+# network examples' returned numbers equal, serving and training within the
+# CPU tests' tolerances (MODEL_TOL on the logits, TRAIN_LOSS_TOL on the
+# losses)
+EXAMPLES_NET = ("quickstart", "telemetry_quickstart", "topology_scenarios_demo",
+                "collective_cct_demo", "job_ettr_quickstart", "cluster_contention_demo")
 
 
 def golden_fabric(n: int, device) -> FabricParams:
@@ -2681,6 +2706,135 @@ def phase_train(dev, rows):
           f"{time.perf_counter() - t2:.1f} s")
 
 
+def _example(name: str):
+    """``examples/torch_<name>.py`` as a module."""
+    spec = importlib.util.spec_from_file_location(f"torch_{name}",
+                                                  os.path.join(ROOT, "examples",
+                                                               f"torch_{name}.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+_KERNELS = {"spray_select": spray_select, "lt_encode": lt_encode, "link_fold": link_fold,
+            "flash_attention": flash_attention, "flash_decode": flash_decode,
+            "flash_attention_bwd": flash_attention_bwd}
+
+
+def _zero_launches():
+    for kernel in _KERNELS.values():
+        kernel.launches = 0
+
+
+def _launches() -> dict:
+    return {name: kernel.launches for name, kernel in _KERNELS.items()}
+
+
+def _quiet(fn, *args, **kw):
+    """``fn``'s result, its printout kept from the log."""
+    with contextlib.redirect_stdout(io.StringIO()):
+        return fn(*args, **kw)
+
+
+def phase_examples(dev, rows):
+    """Every example at its CPU tests' sizes (its module's SMOKE), on the card
+    (the kernels' launches counted into ``rows``) and then on the CPU: the
+    network examples' returned numbers equal (and the telemetry exports'
+    bytes); serving teacher-forced within MODEL_TOL of the CPU's logits, on
+    the same weights drawn on the CPU; training's losses within
+    TRAIN_LOSS_TOL of the CPU's, from the same weights (the bodies of those
+    two examples' ``main``, which draws its weights on its device)."""
+    t0 = time.perf_counter()
+    out_dir = os.path.join(ROOT, "build", "examples")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    times = {}
+    for name in EXAMPLES_NET:
+        ex = _example(name)
+        runs = {}
+        for where, device in (("card", dev), ("cpu", torch.device("cpu"))):
+            kw = dict(ex.SMOKE)
+            if name == "telemetry_quickstart":
+                kw["out_dir"] = os.path.join(out_dir, "telemetry", where)
+            _zero_launches()
+            t1 = time.perf_counter()
+            runs[where] = _quiet(ex.main, ["--device", str(device)], **kw)
+            times[where] = time.perf_counter() - t1
+            if where == "card":
+                launched = {k: n for k, n in _launches().items() if n}
+                for k, n in launched.items():
+                    rows[k]["launches"] += n
+        if runs["card"] != runs["cpu"]:
+            raise AssertionError(f"example {name}: the card's numbers differ from the CPU's: "
+                                 f"{runs['card']} vs {runs['cpu']}")
+        if name == "telemetry_quickstart":
+            for f in sorted(os.listdir(os.path.join(out_dir, "telemetry", "cpu"))):
+                a, b = (open(os.path.join(out_dir, "telemetry", w, f), "rb").read()
+                        for w in ("card", "cpu"))
+                if a != b:
+                    raise AssertionError(f"example {name}: {f} differs, card against CPU")
+        # every example sprays with WAM; all but these two run the shared fabric
+        needed = ["spray_select"] + ([] if name in ("quickstart", "collective_cct_demo")
+                                     else ["link_fold"])
+        if not all(launched.get(k) for k in needed):
+            raise AssertionError(f"example {name}: launches on the card {launched}, "
+                                 f"needs {needed}")
+        print(f"[examples] {name} ({ex.SMOKE}): card = CPU on every returned number; "
+              f"launches on the card {launched}; {times['card']:.2f} s on the card, "
+              f"{times['cpu']:.2f} s on the CPU")
+
+    ex = _example("serve_batched")
+    cfg = get_smoke_config("qwen3-8b")
+    params = M.compute_params(M.init_params(torch.Generator().manual_seed(0), cfg))
+    cpu = _quiet(ex.serve, params, cfg, **ex.SMOKE, device=torch.device("cpu"))
+    _zero_launches()
+    card = _quiet(ex.serve, _to(params, dev), cfg, **ex.SMOKE, device=dev,
+                  forced=torch.as_tensor(cpu["tokens"]).to(dev))
+    launched = _launches()
+    for k, n in launched.items():
+        rows[k]["launches"] += n
+    per = _attn_counts(cfg)[0]
+    if (launched["flash_attention"], launched["flash_decode"]) != (
+            per, per * (ex.SMOKE["gen"] - 1)):
+        raise AssertionError(f"example serve_batched: launches {launched}")
+    got, want = torch.as_tensor(card["logits"]), torch.as_tensor(cpu["logits"])
+    err = _check_close(got, want, MODEL_TOL, "example serve_batched: logits, card vs CPU")
+    clear = _margin_clear(want, MODEL_TOL)
+    if not np.array_equal(card["tokens"][clear.numpy()], cpu["tokens"][clear.numpy()]):
+        raise AssertionError("example serve_batched: tokens differ where the margin is clear")
+    print(f"[examples] serve_batched ({cfg.name} smoke, {ex.SMOKE}): card teacher-forced on "
+          f"the CPU's tokens, max |logit diff| {err}, tokens equal at {int(clear.sum())} of "
+          f"{clear.numel()} clear positions; launches (flash_attention, flash_decode) "
+          f"({launched['flash_attention']}, {launched['flash_decode']})")
+
+    ex = _example("train_tiny_lm")
+    cfg = ex.tiny_config("smoke", ex.SMOKE_SIZES)
+    steps, seq, batch = (int(ex.SMOKE_ARGV[ex.SMOKE_ARGV.index(f) + 1])
+                         for f in ("--steps", "--seq-len", "--batch"))
+    params = M.init_params(torch.Generator().manual_seed(0), cfg)
+    card_params = tree.map_leaves(lambda t: t.to(dev, copy=True), params)
+    run = dict(steps=steps, seq_len=seq, batch=batch, log_every=1, ckpt_every=2)
+    cpu = _quiet(ex.train, params, cfg, ckpt_dir=os.path.join(out_dir, "train_cpu"), **run)
+    _zero_launches()
+    card = _quiet(ex.train, card_params, cfg, ckpt_dir=os.path.join(out_dir, "train_card"),
+                  **run)
+    launched = _launches()
+    for k, n in launched.items():
+        rows[k]["launches"] += n
+    if (launched["flash_attention"], launched["flash_attention_bwd"]) != (
+            2 * cfg.n_layers * steps, cfg.n_layers * steps):
+        raise AssertionError(f"example train_tiny_lm: launches {launched}")
+    err = max(abs(card["losses"][k] - cpu["losses"][k]) for k in cpu["losses"])
+    if card["losses"].keys() != cpu["losses"].keys() or err > TRAIN_LOSS_TOL:
+        raise AssertionError(f"example train_tiny_lm: losses {card['losses']} vs "
+                             f"{cpu['losses']}")
+    print(f"[examples] train_tiny_lm (smoke, {steps} steps of {batch} x {seq}): losses "
+          f"{card['losses']}, max |diff| against the CPU {err}; launches (flash_attention, "
+          f"flash_attention_bwd) ({launched['flash_attention']}, "
+          f"{launched['flash_attention_bwd']})")
+
+    print(f"[examples] phase ran {time.perf_counter() - t0:.1f} s")
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -2729,6 +2883,7 @@ def main() -> int:
     phase_zoo(dev, rows)
     torch.cuda.empty_cache()
     phase_train(dev, rows)
+    phase_examples(dev, rows)
     for row in rows.values():
         if not all(math.isfinite(row[k]) for k in ("ms", "plain_ms", "bound_ms")):
             raise AssertionError(f"non-finite timing in {row}")

@@ -1,10 +1,9 @@
 """Architecture registry: ``--arch <id>`` resolution and smoke variants.
 
-Every id of the JAX package's registry resolves to its config here.  The
-model of an arch whose sublayer kinds, FFN or frontend are not ported
-yet raises `NotImplementedError` when it is built (`models/model.py`,
-`models/transformer.py`, `models/layers.py`); the configs themselves
-feed the cost model and the job layer for every arch.
+Every id of the JAX package's registry resolves to its config here, and
+every sublayer kind, FFN and frontend of those configs is ported: each
+arch's model builds, serves and trains.  The configs also feed the cost
+model and the job layer.
 """
 from __future__ import annotations
 

@@ -27,6 +27,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.numerics import fold_sum
 from repro_torch.models.layers import COMPUTE_DTYPE, _normal, checkpoint_name, ffn_hidden, matmul
 
 __all__ = ["init_moe", "moe", "capacity", "Routes"]
@@ -65,6 +66,24 @@ def _top(x: torch.Tensor, k: int):
     index first among equal values (``lax.top_k``'s order)."""
     values, indices = torch.sort(x, dim=-1, descending=True, stable=True)
     return values[..., :k], indices[..., :k]
+
+
+class _Gated(torch.autograd.Function):
+    """``ye * gate[..., None]`` in ye's dtype, whose backward sums the
+    gate's gradient ``ct * ye`` over the last axis as the reference's
+    compiled ``jax.grad`` does: products rounded to ye's dtype, then
+    XLA:CPU's reduce order in that dtype (`numerics.fold_sum`; bf16
+    gradients bit for bit, where torch's sum rounds once from f32)."""
+
+    @staticmethod
+    def forward(ctx, ye, gate):
+        ctx.save_for_backward(ye, gate)
+        return ye * gate[..., None]
+
+    @staticmethod
+    def backward(ctx, ct):
+        ye, gate = ctx.saved_tensors
+        return ct * gate[..., None], fold_sum(ct * ye, dim=-1)
 
 
 class Routes:
@@ -163,7 +182,7 @@ def moe(p: dict, cfg: ArchConfig, x: torch.Tensor, routes: Routes | None = None,
     h = ffn_hidden(p, xe)                                              # "ffn_h"
     with checkpoint_name("ffn_out"):
         ye = matmul(h, _cast(p["w_down"]))                             # [E, C, D]
-    ye = ye * gate_ec[..., None].to(ye.dtype)
+    ye = _Gated.apply(ye, gate_ec.to(ye.dtype))
 
     # each token's slot in each expert's list, -1 where it was not taken
     slot = torch.full((E, T), -1, dtype=torch.int64, device=x.device)

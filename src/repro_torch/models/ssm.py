@@ -55,9 +55,16 @@ def _cast(x: torch.Tensor) -> torch.Tensor:
     return x.to(COMPUTE_DTYPE)
 
 
+def _at_least(x: torch.Tensor, bound: float) -> torch.Tensor:
+    """``jnp.maximum(x, bound)``: a tie splits the gradient evenly, as
+    ``jax.grad`` does (``torch.clamp`` would pass all of it to ``x``)."""
+    return torch.maximum(x, torch.full((), bound, dtype=x.dtype, device=x.device))
+
+
 def softplus(x: torch.Tensor) -> torch.Tensor:
-    """``jax.nn.softplus`` (``logaddexp(x, 0)``): ``max(x, 0) + log1p(exp(-|x|))``."""
-    return torch.clamp(x, min=0) + torch.log1p(torch.exp(-x.abs()))
+    """``jax.nn.softplus`` (``logaddexp(x, 0)``): ``max(x, 0) + log1p(exp(-|x|))``,
+    its gradient 0.5 at 0 as the reference's."""
+    return _at_least(x, 0.0) + torch.log1p(torch.exp(-x.abs()))
 
 
 def _chunk(S: int) -> int:
@@ -287,7 +294,7 @@ def _mlstm_step(C, n, m, q, k, v, li, lf):
     C = f_p[..., None, None] * C + i_p[..., None, None] * (k[..., :, None] * v[..., None, :])
     n = f_p[..., None] * n + i_p[..., None] * k
     num = torch.einsum("bhk,bhkv->bhv", q, C)
-    den = torch.clamp(torch.einsum("bhk,bhk->bh", q, n).abs(), min=1.0)
+    den = _at_least(torch.einsum("bhk,bhk->bh", q, n).abs(), 1.0)
     return C, n, m_new, num / den[..., None]
 
 
@@ -380,7 +387,7 @@ def _slstm_step(p: dict, cfg: ArchConfig, c, n, m, h, xw_t):
     f_p = torch.exp(log_f + m - m_new)
     c = f_p * c + i_p * z
     n = f_p * n + i_p
-    h = o * c / torch.clamp(n, min=1.0)
+    h = o * c / _at_least(n, 1.0)
     return c, n, m_new, h
 
 

@@ -36,8 +36,9 @@ Rounds are a bulk-synchronous alignment anchored to job 0's planned
 timeline, extended at its trailing cadence past its end.  The
 flow-sharded runners (`shard_run_cluster_rounds`,
 `shard_sweep_cluster_rounds`, `sweep_cluster(mesh=)`) are not ported yet
-(ROADMAP queue 1, item 4): `sweep_cluster` raises `NotImplementedError`
-when given a mesh.  Entry points run on the card by default.
+(flow sharding, ROADMAP queue 1): `sweep_cluster` raises
+`NotImplementedError` when given a mesh.  Entry points run on the card by
+default.
 """
 from __future__ import annotations
 
@@ -623,10 +624,10 @@ def sweep_cluster(
     out)`` sees each run.
 
     `mesh` (the reference's flow-sharded sweep) is not ported yet and
-    raises `NotImplementedError` (ROADMAP queue 1, item 4)."""
+    raises `NotImplementedError` (flow sharding, ROADMAP queue 1)."""
     if mesh is not None:
         raise NotImplementedError("the flow-sharded cluster sweep is not ported yet "
-                                  "(ROADMAP queue 1, item 4)")
+                                  "(flow sharding, ROADMAP queue 1)")
     _check_flows(topo, cluster)
     dev = resolve_device(device)
     scheds, sizes = cluster_inputs(cluster, sched, horizon, device=dev)

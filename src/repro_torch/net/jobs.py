@@ -32,9 +32,9 @@ once on the host with numpy and moved to the device once per scenario;
 each step reads a view of it.
 
 The flow-sharded runners of the reference (`shard_run_job_steps`,
-`shard_sweep_job_steps`, `sweep_job(mesh=)`) are not ported yet (ROADMAP
-queue 1, item 4): `sweep_job` raises `NotImplementedError` when given a
-mesh.
+`shard_sweep_job_steps`, `sweep_job(mesh=)`) are not ported yet (flow
+sharding, ROADMAP queue 1): `sweep_job` raises `NotImplementedError` when
+given a mesh.
 
 Entry points run on the card by default (``device="cuda"``) and raise
 when there is none; pass ``device="cpu"`` to run on the CPU.
@@ -533,10 +533,10 @@ def sweep_job(
     (peel with `telemetry.frame_select`).
 
     `mesh` (the reference's flow-sharded sweep) is not ported yet and
-    raises `NotImplementedError` (ROADMAP queue 1, item 4)."""
+    raises `NotImplementedError` (flow sharding, ROADMAP queue 1)."""
     if mesh is not None:
         raise NotImplementedError("the flow-sharded job sweep is not ported yet "
-                                  "(ROADMAP queue 1, item 4)")
+                                  "(flow sharding, ROADMAP queue 1)")
     if any(topo.flows != j.workers for j in jobs):
         raise ValueError("every job's workers must equal the topology's flows")
     dev = resolve_device(device)

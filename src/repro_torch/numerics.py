@@ -47,6 +47,8 @@ def fold_sum(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
     if n <= SUM_WINDOW:
         return _left_fold(x)
     windows = -(-n // SUM_WINDOW)
+    if n % SUM_WINDOW == 0:  # every window full: fold them side by side
+        return fold_sum(_left_fold(x.unflatten(0, (windows, SUM_WINDOW)).transpose(0, 1)), 0)
     lo = (windows * SUM_WINDOW - n) // 2  # zeros padded in front
     # a padding zero adds nothing, so each window sums its slice of x
     parts = [_left_fold(x[max(0, w * SUM_WINDOW - lo):(w + 1) * SUM_WINDOW - lo])

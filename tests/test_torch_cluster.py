@@ -237,7 +237,7 @@ def test_sweep_cluster_equals_reference(jobs):
                             HORIZON, device="cpu")
     _same_metrics(want, got, "straggler_job_a")
     assert got.ettr.shape == (len(POLICIES), 1, 2) and bool(got.finished.all())
-    with pytest.raises(NotImplementedError, match="queue 1, item 4"):
+    with pytest.raises(NotImplementedError, match=r"flow sharding, ROADMAP queue 1"):
         tcl.sweep_cluster(gt, gs, _spec(tsender, POLICIES), _sp(tsender, POLICIES), gc, keys,
                           HORIZON, mesh=object(), device="cpu")
 

@@ -243,7 +243,7 @@ def test_sweep_job_equals_reference(library_runs):
     for k in want:
         _equal(want[k], got[k], k)
     assert got["cct"].shape == (len(SWEEP_POLICIES), 2, 1, tj[0].total_steps)
-    with pytest.raises(NotImplementedError, match="queue 1, item 4"):
+    with pytest.raises(NotImplementedError, match=r"flow sharding, ROADMAP queue 1"):
         tjobs.sweep_job(topo_t, sched_t, _spec(tsender, POLICIES),
                         tsender.policy_sweep_params([tsender.Policy.WAM], rate=RATE), tj,
                         keys, HORIZON, mesh=object(), device="cpu")

@@ -13,7 +13,9 @@ torch = pytest.importorskip("torch")
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT_FILES = (sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
-              + sorted((ROOT / "scripts").glob("*.py")))
+              + sorted((ROOT / "scripts").glob("*.py"))
+              + sorted((ROOT / "examples").glob("torch_*.py"))
+              + sorted((ROOT / "tools").glob("torch_*.py")))
 PORT_TESTS = sorted((ROOT / "tests").glob("test_torch_*.py"))
 # process-wide state a test file must not touch while it is imported: the
 # module table (a stub left there leaks into every later file of the
@@ -229,6 +231,7 @@ def test_entry_points_default_to_the_card():
         lambda: collectives.allreduce_cct(smoke.golden_fabric(4, "cpu"), cfg, ccfg, key),
         lambda: jobsim.main(["--max-shard", "16", "--horizon", "16", "--iterations", "1"]),
         lambda: clustersim.main(["--max-shard", "16", "--horizon", "16"]),
+        lambda: _load("torch_quickstart", ROOT / "examples" / "torch_quickstart.py").main([]),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="no CUDA device"):
