@@ -188,10 +188,20 @@ Phases (the first that fails ends the run with a nonzero exit):
    prefill, one `flash_decode` a layer a step); `train_tiny_lm`'s `train`
    from one set of weights, losses within `TRAIN_LOSS_TOL` (two
    `flash_attention` and one `flash_attention_bwd` a layer a step).
+13. Flow-sharded runs (phase `shard`, after phase 6; ranks are threads of
+   this process with private `torch.distributed` groups): (a) phase 5's
+   fat-tree family without telemetry through `shard_sweep_flows_scenarios`
+   over two gloo ranks sharing the card: every field equal to phase 5's
+   unsharded result and the cct digest the reference's (`FAT_DIGEST`);
+   (b) five flows, one of size 0 (the CPU tests' padded case), through
+   `shard_run_flows` on one NCCL rank, equal to `run_flows_sized` on the
+   card; (c) `sweep_job` and `sweep_cluster` with a mesh of two ranks on
+   the card at the CPU tests' sizes, equal to the unsharded runs on the
+   CPU.  Each part's seconds, ticks, ms a tick and launches are printed.
 
-Each path of phases 4-12 runs with the kernels' launch counts set to 0
+Each path of phases 4-13 runs with the kernels' launch counts set to 0
 just before it and read just after; a kernel row's ``launches`` is its
-total over those paths (the comparisons of phases 5 and 6 not counted).  The
+total over those paths (the comparisons of phases 5, 6 and 13 not counted).  The
 last lines are the card's name and power limit, one JSON object with a
 row per kernel, and ``{"ok": true, "device": {...}}``.  Without a CUDA
 device the script exits nonzero and prints no result.
@@ -396,6 +406,13 @@ JOB_DIGEST, CLUSTER_DIGEST = "96419a91aea6b0c4", "cc1ada697e2a514d"
 # the card-against-CPU job and cluster runs: the CPU tests' sizes
 SMALL_JOB_POLICIES, SMALL_JOB_HORIZON = ("ECMP", "WAM", "RAND_ADAPTIVE", "CC_COUPLED"), 384
 SMALL_JOB_TELEMETRY = dict(stride=4, window=32)
+# phase `shard`: the fat-tree family's cct digest (the JAX package's, as
+# benchmarks/bench_scaleout.py prints it), and the CPU tests' sizes of
+# tests/test_torch_shard_flows.py and test_torch_shard_jobs.py
+FAT_DIGEST = "a60b023667ba5fa2"
+SHARD_RATE, SHARD_HORIZON = 16, 512
+SHARD_PAIRS, SHARD_SIZES = ((0, 2), (1, 3), (2, 1), (0, 3), (3, 0)), (48, 0, 24, 64, 16)
+SHARD_POLICIES = ("ECMP", "WAM")
 # a dependent float32 add waits this many cycles of the SM clock on Hopper's
 # CUDA cores (the latency of FADD; the card's clock is read with nvidia-smi)
 FADD_CYCLES = 4
@@ -1189,6 +1206,7 @@ def phase_fat_tree(dev, rows):
               f"{len(pols)} policies x 2 draws, {int(topos.route.shape[2])} flows, telemetry): "
               f"every field and frame leaf equal to the CPU run ({t_card:.1f} s on the card, "
               f"{time.perf_counter() - t0:.1f} s on the CPU)")
+    return result
 
 
 class _RunLog:
@@ -1479,6 +1497,123 @@ def phase_jobs(dev, rows):
     # (e) the card against the CPU at the CPU tests' sizes
     _job_card_vs_cpu(dev)
     _cluster_card_vs_cpu(dev)
+
+
+def _shard_job_cluster(mesh):
+    """The CPU tests' job and cluster sweeps (tests/test_torch_shard_jobs.py):
+    `sweep_job` over a ring of three workers on link_flap and `sweep_cluster`
+    over two two-worker jobs one leaf a pod on a fat-tree, ECMP and WAM, on
+    ``mesh`` or (``mesh=None``) unsharded on the CPU."""
+    def job(workers):
+        return jobs.compile_job("xlstm-350m", workers=workers, tp=8, iterations=1,
+                                rate=SHARD_RATE, min_shard=16, max_shard=48,
+                                overlap={"allreduce": 0.0, "allgather": 0.0})
+
+    spec = sender.SenderSpec(rate_cap=SHARD_RATE, early_exit=True, exit_chunk=8)
+    sp = sender.policy_sweep_params([Policy[p] for p in SHARD_POLICIES], rate=SHARD_RATE)
+    where = dict(mesh=mesh) if mesh is not None else dict(device="cpu")
+    topo, sched = job_scenarios(workers=3, horizon=SHARD_HORIZON)["link_flap"]
+    job_out = jobs.sweep_job(topo, sched, spec, sp, [job(3)], prng.split(prng.PRNGKey(7), 1),
+                             SHARD_HORIZON, **where)
+    placed = cluster.place_jobs_pods([job(2)] * 2, leaves_per_pod=1)
+    topo = cluster.cluster_fat_tree_topology(placed, leaves_per_pod=1)
+    cluster_out = cluster.sweep_cluster(topo, null_schedule(topo.links), spec, sp, placed,
+                                        prng.split(prng.PRNGKey(8), 1), SHARD_HORIZON, **where)
+    return job_out, cluster_out
+
+
+def _counted(what, ranks, fn):
+    """``fn()`` with the kernels' launch counts set to 0 just before it; its
+    seconds, ticks (link_fold launches / 2 a tick / ``ranks``) and launches
+    printed; every rank folded its links twice a tick and sprayed (WAM)."""
+    torch.cuda.synchronize()
+    link_fold.launches = spray_select.launches = 0
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    folds, sprays = link_fold.launches, spray_select.launches
+    ticks = folds // (2 * ranks)
+    print(f"[shard] {what}: {secs:.3f} s, {ticks} ticks a rank ({1e3 * secs / max(ticks, 1):.4f} "
+          f"ms a tick), launches link_fold {folds}, spray_select {sprays}")
+    if not folds or not sprays or folds % (2 * ranks):
+        raise AssertionError(f"shard {what}: the run did not go through its kernels")
+    return out, secs, folds, sprays
+
+
+def phase_shard(dev, rows, family_result):
+    """Flow-sharded runs: (a) phase 5's fat-tree family over two gloo ranks
+    sharing the card, equal to phase 5's unsharded result in every field;
+    (b) the padded case on one NCCL rank, equal to the unsharded run on the
+    card; (c) `sweep_job` / `sweep_cluster` over two ranks on the card at
+    the CPU tests' sizes, equal to the unsharded runs on the CPU."""
+    launches = {"link_fold": 0, "spray_select": 0}
+    two = sender.flow_mesh(2, device=f"cuda:{torch.cuda.current_device()}")
+    if two.backend != "gloo" or len(set(two.devices)) != 1:
+        raise AssertionError(f"shard: {two} is not two gloo ranks on one card")
+
+    # (a) the fat-tree family, as phase 5 runs it but without telemetry
+    family = fat_family()
+    topos, scheds = stack_scenarios(list(family.values()))
+    spec = sender.SenderSpec(rate_cap=FAT_RATE, early_exit=True)
+    sp = sender.policy_sweep_params([Policy[p] for p in FAT_POLICIES], rate=FAT_RATE)
+    keys = prng.split(prng.PRNGKey(7), 1)
+    got, secs, folds, sprays = _counted(
+        f"(a) fat-tree family, {FAT_FLOWS} flows over 2 ranks", 2,
+        lambda: sender.shard_sweep_flows_scenarios(topos, scheds, spec, sp, FAT_PACKETS, keys,
+                                                   FAT_HORIZON, mesh=two))
+    _equal_runs(family_result, got, "shard (a): the sharded family against phase 5's")
+    digest = _digest(got.cct)
+    if digest != FAT_DIGEST:
+        raise AssertionError(f"shard (a): cct digest {digest}, the reference's {FAT_DIGEST}")
+    ticks = int(got.ticks_run.sum())
+    print(f"[shard] (a) every field equal to phase 5's unsharded run; {ticks} ticks "
+          f"({got.ticks_run.flatten().tolist()}), {1e3 * secs / ticks:.4f} ms a tick, cct "
+          f"digest {digest}")
+    launches["link_fold"] += folds
+    launches["spray_select"] += sprays
+
+    # (b) the padded case on one NCCL rank
+    one = sender.flow_mesh(1)
+    if one.backend != "nccl":
+        raise AssertionError(f"shard: {one} is not one NCCL rank")
+    topo = leaf_spine(4, 2, SHARD_PAIRS)
+    args = (topo, null_schedule(topo.links),
+            sender.SenderSpec(rate_cap=SHARD_RATE, early_exit=True, exit_chunk=16),
+            sender.sender_params(Policy.WAM, rate=SHARD_RATE),
+            torch.tensor(SHARD_SIZES, dtype=torch.int32), prng.PRNGKey(4), SHARD_HORIZON)
+    got, _, folds, sprays = _counted("(b) five flows, one of size 0, on one NCCL rank", 1,
+                                     lambda: sender.shard_run_flows(*args, mesh=one))
+    _equal_runs(sender.run_flows_sized(*args, device=dev), got,
+                "shard (b): one NCCL rank against the unsharded run")
+    print("[shard] (b) every field equal to the unsharded run on the card")
+    launches["link_fold"] += folds
+    launches["spray_select"] += sprays
+
+    # (c) the job and cluster sweeps over two ranks, the card against the CPU
+    (job_card, cluster_card), _, folds, sprays = _counted(
+        "(c) sweep_job and sweep_cluster over 2 ranks", 2, lambda: _shard_job_cluster(two))
+    t0 = time.perf_counter()
+    job_cpu, cluster_cpu = _shard_job_cluster(None)
+    for k in job_cpu:
+        if not np.array_equal(job_cpu[k], job_card[k]) or job_cpu[k].dtype != job_card[k].dtype:
+            raise AssertionError(f"shard (c): sweep_job {k} differs from the CPU's")
+    for f in dataclasses.fields(cluster_cpu):
+        if f.name == "cluster":
+            continue
+        a, b = getattr(cluster_cpu, f.name), getattr(cluster_card, f.name)
+        if f.name == "step_cct":
+            a, b = np.stack(a), np.stack(b)
+        if not np.array_equal(a, b) or a.dtype != b.dtype:
+            raise AssertionError(f"shard (c): sweep_cluster {f.name} differs from the CPU's")
+    print(f"[shard] (c) sweep_job and every sweep_cluster metric equal to the unsharded CPU "
+          f"runs ({time.perf_counter() - t0:.1f} s on the CPU)")
+    launches["link_fold"] += folds
+    launches["spray_select"] += sprays
+    for name, n in launches.items():
+        rows[name]["launches"] += n
+    print(f"[shard] launches in the phase: link_fold {launches['link_fold']}, spray_select "
+          f"{launches['spray_select']}")
 
 
 def _same_decode(a, b, what):
@@ -2874,8 +3009,9 @@ def main() -> int:
             "flash_decode": phase_flash_decode(dev), "link_fold": phase_link_fold(dev)}
     phase_goldens(dev)
     phase_wide(dev, rows)
-    phase_fat_tree(dev, rows)
+    family_result = phase_fat_tree(dev, rows)
     phase_jobs(dev, rows)
+    phase_shard(dev, rows, family_result)
     phase_coded(dev, rows, message)
     phase_router(dev, rows)
     phase_dense(dev, rows)

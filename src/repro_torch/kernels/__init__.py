@@ -5,7 +5,8 @@ Each module binds one or more ``csrc/<name>.cu`` sources (CUDA C++ for
 ``sm_90a``, built by `build` at first launch and loaded with ctypes) and
 dispatches on the tensors' device: a CUDA tensor launches the kernel, a
 CPU tensor runs the plain version.  Every wrapper counts its launches in
-``<wrapper>.launches``.
+``<wrapper>.launches`` (`count_launch`: the ranks of a flow-sharded run
+launch from threads of their own).
 
 - `spray_select`: the per-packet Whack-a-Mole path choice (the Pallas
   ``spray_select_pallas``); `spray_select` / `spray_select_rows`, plain
@@ -25,3 +26,13 @@ CPU tensor runs the plain version.  Every wrapper counts its launches in
 - `tma`: what a tensor map reads in place, and the aligning copy, shared
   by the two attention kernels; `build`: nvcc and the loader.
 """
+
+import threading
+
+_COUNT_LOCK = threading.Lock()
+
+
+def count_launch(wrapper) -> None:
+    """``wrapper.launches += 1`` under a lock, so no thread's count is lost."""
+    with _COUNT_LOCK:
+        wrapper.launches += 1

@@ -13,6 +13,7 @@ import ctypes
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 from typing import Dict, Iterable
 
@@ -26,6 +27,7 @@ NVCC_FLAGS = ("-O3", "-gencode=arch=compute_90a,code=sm_90a", "-std=c++17",
               "-shared", "-Xcompiler", "-fPIC", "-fmad=false", "-ldl")
 
 _LOADED: Dict[str, ctypes.CDLL] = {}
+_LOAD_LOCK = threading.Lock()  # the ranks of a flow-sharded run are threads
 
 
 def _nvcc() -> str:
@@ -72,9 +74,10 @@ def build_all(names: Iterable[str] | None = None) -> Dict[str, str]:
 
 def load(name: str) -> ctypes.CDLL:
     """The loaded library for ``csrc/<name>.cu``, built first if needed."""
-    lib = _LOADED.get(name)
-    if lib is None:
-        build_all([name])
-        lib = ctypes.CDLL(str(BUILD_DIR / f"lib{name}.so"))
-        _LOADED[name] = lib
-    return lib
+    with _LOAD_LOCK:
+        lib = _LOADED.get(name)
+        if lib is None:
+            build_all([name])
+            lib = ctypes.CDLL(str(BUILD_DIR / f"lib{name}.so"))
+            _LOADED[name] = lib
+        return lib

@@ -27,6 +27,8 @@ import functools
 import numpy as np
 import torch
 
+from repro_torch.kernels import count_launch
+
 __all__ = ["LinkSegments", "link_segments", "link_fold", "link_fold_plain"]
 
 
@@ -128,7 +130,7 @@ def link_fold(vals: torch.Tensor, seg: LinkSegments, base: torch.Tensor) -> torc
                       base.data_ptr(), out.data_ptr(), seg.links, seg.depth, stream)
     if err != 0:
         raise RuntimeError(f"link_fold launch failed with CUDA error {err}")
-    link_fold.launches += 1
+    count_launch(link_fold)
     return out
 
 

@@ -28,6 +28,7 @@ import functools
 import torch
 
 from repro_torch.core.spray import select_path, spray_key
+from repro_torch.kernels import count_launch
 from repro_torch.random import M32
 
 __all__ = ["spray_select", "spray_select_plain", "spray_select_rows",
@@ -136,7 +137,7 @@ def _launch(ctr, ctr_row, ctr_col, lane_step, c, sa, sb, sa_row, sb_row, B, ell,
                       R, B, n, int(ell), int(method), stream)
     if err != 0:
         raise RuntimeError(f"spray_select launch failed with CUDA error {err}")
-    spray_select.launches += 1
+    count_launch(spray_select)
     return out
 
 

@@ -8,8 +8,9 @@ active ring step as coupled flows under a cluster scenario
 solo-run ETTR, cross-job slowdown, Jain fairness and the hottest link's
 utilization (`cluster.sweep_cluster`).  The port of the JAX package's
 `launch/clustersim.py`: the same arguments, lines and ``--json`` payload,
-with ``--device`` (default ``cuda``) in place of ``--devices``; the
-flow-sharded sweep is not ported yet.
+plus ``--device`` (default ``cuda``); ``--devices N`` runs the sweep
+flow-sharded over N ranks on that device (`sender.flow_mesh`),
+bit-identical to the unsharded sweep.
 
     PYTHONPATH=src python -m repro_torch.launch.clustersim \\
         --archs xlstm-350m,qwen3-8b --scenario rings_overlapped
@@ -30,7 +31,7 @@ from repro_torch import random as prng
 from repro_torch.net.cluster import sweep_cluster
 from repro_torch.net.jobs import compile_job
 from repro_torch.net.scenarios import CLUSTER_SCENARIO_NAMES, cluster_scenarios
-from repro_torch.net.sender import SenderSpec, sender_params, stack_params
+from repro_torch.net.sender import SenderSpec, flow_mesh, sender_params, stack_params
 from repro_torch.net.transport import Policy
 
 __all__ = ["main"]
@@ -57,6 +58,9 @@ def main(argv=None) -> None:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--json", metavar="PATH", help="also dump results as JSON")
     ap.add_argument("--device", default="cuda", help="torch device (cuda or cpu)")
+    ap.add_argument("--devices", type=int, default=None, metavar="N",
+                    help="run the sweep flow-sharded over N ranks on --device "
+                         "(sender.flow_mesh; bit-identical results)")
     args = ap.parse_args(argv)
 
     if args.scenario not in CLUSTER_SCENARIO_NAMES:
@@ -64,6 +68,11 @@ def main(argv=None) -> None:
             f"--scenario {args.scenario!r}: choose from "
             f"{CLUSTER_SCENARIO_NAMES}"
         )
+    mesh = None
+    if args.devices is not None:
+        mesh = flow_mesh(args.devices, device=args.device)
+        print(f"devices: {args.devices} flow ranks on {args.device} "
+              f"(flow-sharded sweep, bit-identical to unsharded)")
     policies = [Policy[p.strip()] for p in args.policies.split(",")]
     archs = [a.strip() for a in args.archs.split(",")]
     jobs = [
@@ -91,7 +100,7 @@ def main(argv=None) -> None:
     sp = stack_params([sender_params(p, rate=args.rate) for p in policies])
     keys = prng.split(prng.PRNGKey(args.seed), args.draws)
     r = sweep_cluster(topo, sched, spec, sp, cluster, keys, args.horizon,
-                      device=args.device)
+                      device=args.device, mesh=mesh)
 
     print(f"\nscenario {args.scenario} ({args.draws} draws, "
           f"horizon {args.horizon}):")

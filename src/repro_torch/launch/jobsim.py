@@ -5,9 +5,11 @@ Turns a model config into a per-iteration collective schedule
 (`repro_torch.net.scenarios.job_scenarios`) for each requested policy,
 and prints the compiled schedule plus per-policy ETTR and exposed
 communication (`jobs.sweep_job`).  The port of the JAX package's
-`launch/jobsim.py`: the same arguments, lines and ``--json`` payload, with
-``--device`` (default ``cuda``) in place of ``--devices``; the
-flow-sharded sweep is not ported yet.
+`launch/jobsim.py`: the same arguments, lines and ``--json`` payload,
+plus ``--device`` (default ``cuda``).  ``--devices N`` runs the sweep
+flow-sharded over N ranks on that device (`sender.flow_mesh`: threads with
+private process groups; ranks beyond the cards share them), bit-identical
+to the unsharded sweep, so it is an execution knob, not a model change.
 
     PYTHONPATH=src python -m repro_torch.launch.jobsim \\
         --arch qwen3-8b --scenario link_flap --workers 4 --iterations 2
@@ -15,6 +17,10 @@ flow-sharded sweep is not ported yet.
     PYTHONPATH=src python -m repro_torch.launch.jobsim --arch xlstm-350m \\
         --scenario link_flap --policies WAM,ECMP --draws 1 --max-shard 48 \\
         --horizon 256 --device cpu --json out.json
+
+    PYTHONPATH=src python -m repro_torch.launch.jobsim --arch xlstm-350m \\
+        --policies WAM,ECMP --draws 1 --max-shard 48 --horizon 256 \\
+        --device cpu --devices 2
 """
 from __future__ import annotations
 
@@ -26,7 +32,7 @@ import numpy as np
 from repro_torch import random as prng
 from repro_torch.net.jobs import compile_job, step_table, sweep_job, total_packets
 from repro_torch.net.scenarios import JOB_SCENARIO_NAMES, job_scenarios
-from repro_torch.net.sender import SenderSpec, sender_params, stack_params
+from repro_torch.net.sender import SenderSpec, flow_mesh, sender_params, stack_params
 from repro_torch.net.transport import Policy
 
 __all__ = ["main"]
@@ -49,12 +55,20 @@ def main(argv=None) -> None:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--json", metavar="PATH", help="also dump results as JSON")
     ap.add_argument("--device", default="cuda", help="torch device (cuda or cpu)")
+    ap.add_argument("--devices", type=int, default=None, metavar="N",
+                    help="run the sweep flow-sharded over N ranks on --device "
+                         "(sender.flow_mesh; bit-identical results)")
     args = ap.parse_args(argv)
 
     if args.scenario not in JOB_SCENARIO_NAMES:
         ap.error(
             f"--scenario {args.scenario!r}: choose from {JOB_SCENARIO_NAMES}"
         )
+    mesh = None
+    if args.devices is not None:
+        mesh = flow_mesh(args.devices, device=args.device)
+        print(f"devices: {args.devices} flow ranks on {args.device} "
+              f"(flow-sharded sweep, bit-identical to unsharded)")
     policies = [Policy[p.strip()] for p in args.policies.split(",")]
     job = compile_job(
         args.arch, workers=args.workers, tp=args.tp,
@@ -82,7 +96,7 @@ def main(argv=None) -> None:
     sp = stack_params([sender_params(p, rate=args.rate) for p in policies])
     keys = prng.split(prng.PRNGKey(args.seed), args.draws)
     out = sweep_job(topo, sched, spec, sp, [job], keys, horizon=args.horizon,
-                    device=args.device)
+                    device=args.device, mesh=mesh)
 
     print(f"\nscenario {args.scenario} ({args.draws} draws, "
           f"horizon {args.horizon}):")

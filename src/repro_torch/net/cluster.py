@@ -35,10 +35,9 @@ float64 numpy as in the reference:
 Rounds are a bulk-synchronous alignment anchored to job 0's planned
 timeline, extended at its trailing cadence past its end.  The
 flow-sharded runners (`shard_run_cluster_rounds`,
-`shard_sweep_cluster_rounds`, `sweep_cluster(mesh=)`) are not ported yet
-(flow sharding, ROADMAP queue 1): `sweep_cluster` raises
-`NotImplementedError` when given a mesh.  Entry points run on the card by
-default.
+`shard_sweep_cluster_rounds`, `sweep_cluster(mesh=)`) split each round's
+flows over the ranks of a `sender.flow_mesh` and give the unsharded
+results bit for bit.  Entry points run on the card by default.
 """
 from __future__ import annotations
 
@@ -51,8 +50,9 @@ import torch
 from repro_torch import random as prng
 from repro_torch.device import resolve_device
 from repro_torch.net.jobs import JobSchedule, job_ettr, scheduled_events, step_table
-from repro_torch.net.sender import (SenderParams, SenderSpec, _keys, _points, _run_flows,
-                                    _stack_runs, to_device)
+from repro_torch.net.sender import (Mesh, SenderParams, SenderSpec, _keys, _points,
+                                    _run_flows, _shard_runs, _stack_runs, flow_mesh,
+                                    to_device)
 from repro_torch.net.telemetry import _np, frame_select
 from repro_torch.net.topology import EventSchedule, TopologyParams, fat_tree, leaf_spine
 
@@ -70,6 +70,8 @@ __all__ = [
     "run_cluster_rounds",
     "sweep_cluster_rounds",
     "sweep_cluster_rounds_scenarios",
+    "shard_run_cluster_rounds",
+    "shard_sweep_cluster_rounds",
     "jain_index",
     "link_utilization",
     "cluster_metrics",
@@ -356,28 +358,42 @@ def cluster_inputs(
 _RAW = ("cct", "finished", "link_served", "link_busy")
 
 
-def _rounds(topo, scheds, spec, sp, sizes, key, horizon, dev, on_run, lead):
-    """Every round x variant of one cluster run (see `run_cluster_rounds`)."""
+def _round_runs(run, scheds, sizes, key, on_run, lead):
+    """Every round x variant of one cluster run (see `run_cluster_rounds`),
+    as ``run(sched, n_packets, key)`` outputs in that row-major order."""
     R = int(sizes.shape[-2])
     var = tuple(sizes.shape[:-2])
-    keys = prng.fold_in(key, torch.arange(R, dtype=torch.int64, device=dev))
+    keys = prng.fold_in(key, torch.arange(R, dtype=torch.int64, device=key.device))
     runs = []
     for r in range(R):
         sched_r = frame_select(scheds, r)
         for v in np.ndindex(*var):
-            out = _run_flows(topo, sched_r, spec, sp, sizes[v + (r,)], keys[r],
-                             horizon, dev, False)
+            out = run(sched_r, sizes[v + (r,)], keys[r])
             if on_run is not None:
                 on_run(lead + (r,) + v, out)
             runs.append(out)
+    return runs
+
+
+def _round_fields(runs, sizes, spec):
+    """The raw fields of one cluster run's outputs, round axis at -2."""
+    lead = (int(sizes.shape[-2]),) + tuple(sizes.shape[:-2])
     if spec.telemetry is not None:
-        results, frame = _stack_runs(runs, (R,) + var)
+        results, frame = _stack_runs(runs, lead)
     else:
-        results, frame = _stack_runs(runs, (R,) + var), None
+        results, frame = _stack_runs(runs, lead), None
     res = {k: getattr(results, k).movedim(0, -2) for k in _RAW}
     if frame is not None:
         res["telemetry"] = frame
     return res
+
+
+def _rounds(topo, scheds, spec, sp, sizes, key, horizon, dev, on_run, lead):
+    def run(sched, n_packets, k):
+        return _run_flows(topo, sched, spec, sp, n_packets, k, horizon, dev, False)
+
+    return _round_fields(_round_runs(run, scheds, sizes, key.to(dev), on_run, lead), sizes,
+                         spec)
 
 
 def run_cluster_rounds(
@@ -482,6 +498,60 @@ def sweep_cluster_rounds_scenarios(
                           keys, horizon, dev, None, (c,))
             for c in range(C)]
     return _stack_dicts(outs, (C,))
+
+
+def shard_run_cluster_rounds(
+    topo: TopologyParams,
+    scheds: EventSchedule,
+    spec: SenderSpec,
+    sp: SenderParams,
+    sizes: torch.Tensor,
+    key: torch.Tensor,
+    horizon: int = 2048,
+    *,
+    mesh: Mesh | None = None,
+) -> Dict[str, torch.Tensor]:
+    """`run_cluster_rounds` with the cluster's flow axis sharded over
+    ``mesh`` (`sender.flow_mesh`; default: every visible card):
+    bit-identical ``{"cct": [..., R, F], ...}``, each round's coupled run
+    split across the ranks (flow counts the ranks do not divide are padded
+    with silent flows and cut back off).  Telemetry is not supported on
+    this path."""
+    mesh = flow_mesh() if mesh is None else mesh
+    sizes = torch.as_tensor(sizes)
+    runs = _shard_runs(mesh, [topo], spec, horizon, lambda run, d: _round_runs(
+        lambda sched, n, k: run(0, sched, sp, n, k), *d, None, ()),
+        (scheds, sizes, torch.as_tensor(key)))
+    return _round_fields(runs, sizes, spec)
+
+
+def shard_sweep_cluster_rounds(
+    topo: TopologyParams,
+    scheds: EventSchedule,
+    spec: SenderSpec,
+    sp: SenderParams,
+    sizes: torch.Tensor,
+    keys: torch.Tensor,
+    horizon: int = 2048,
+    *,
+    mesh: Mesh | None = None,
+) -> Dict[str, torch.Tensor]:
+    """`sweep_cluster_rounds` sharded over the flow axis: bit-identical
+    ``{"cct": [P, D, V, R, F], ...}``, the policies and draws run one after
+    another inside every rank."""
+    mesh = flow_mesh() if mesh is None else mesh
+    points, keys, sizes = _points(sp), _keys(keys, "cpu"), torch.as_tensor(sizes)
+    pairs = [(point, d) for point in points for d in range(keys.shape[0])]
+
+    def loop(run, data):
+        scheds, sizes, keys = data
+        return [out for point, d in pairs for out in _round_runs(
+            lambda sched, n, k: run(0, sched, point, n, k), scheds, sizes, keys[d], None, ())]
+
+    runs = _shard_runs(mesh, [topo], spec, horizon, loop, (scheds, sizes, keys))
+    per = len(runs) // len(pairs)
+    outs = [_round_fields(runs[i:i + per], sizes, spec) for i in range(0, len(runs), per)]
+    return _stack_dicts(outs, (len(points), int(keys.shape[0])))
 
 
 def jain_index(x: np.ndarray, axis: int = -1) -> np.ndarray:
@@ -623,14 +693,18 @@ def sweep_cluster(
     ``jain[P, D]``, ``link_util[P, D, L]``, ...); ``on_run((p, d, r, v),
     out)`` sees each run.
 
-    `mesh` (the reference's flow-sharded sweep) is not ported yet and
-    raises `NotImplementedError` (flow sharding, ROADMAP queue 1)."""
-    if mesh is not None:
-        raise NotImplementedError("the flow-sharded cluster sweep is not ported yet "
-                                  "(flow sharding, ROADMAP queue 1)")
+    With ``mesh`` (a `sender.flow_mesh`) the raw sweep runs flow-sharded on
+    the mesh's devices through `shard_sweep_cluster_rounds` (``device`` and
+    ``on_run`` are not read): bit-identical raw outputs, so every derived
+    metric is too."""
     _check_flows(topo, cluster)
-    dev = resolve_device(device)
-    scheds, sizes = cluster_inputs(cluster, sched, horizon, device=dev)
-    raw = sweep_cluster_rounds(topo, scheds, spec, sp, sizes, keys, horizon, device=dev,
-                               on_run=on_run)
+    if mesh is not None:
+        scheds, sizes = cluster_inputs(cluster, sched, horizon, device=mesh.devices[0])
+        raw = shard_sweep_cluster_rounds(topo, scheds, spec, sp, sizes, keys, horizon,
+                                         mesh=mesh)
+    else:
+        dev = resolve_device(device)
+        scheds, sizes = cluster_inputs(cluster, sched, horizon, device=dev)
+        raw = sweep_cluster_rounds(topo, scheds, spec, sp, sizes, keys, horizon, device=dev,
+                                   on_run=on_run)
     return cluster_metrics(cluster, topo, raw)

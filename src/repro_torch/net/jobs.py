@@ -31,10 +31,10 @@ step's offset on the job's planned timeline (`scheduled_events`), built
 once on the host with numpy and moved to the device once per scenario;
 each step reads a view of it.
 
-The flow-sharded runners of the reference (`shard_run_job_steps`,
-`shard_sweep_job_steps`, `sweep_job(mesh=)`) are not ported yet (flow
-sharding, ROADMAP queue 1): `sweep_job` raises `NotImplementedError` when
-given a mesh.
+The flow-sharded runners (`shard_run_job_steps`, `shard_sweep_job_steps`,
+`sweep_job(mesh=)`) split each step's ring flows over the ranks of a
+`sender.flow_mesh` (threads with private process groups) and give the
+unsharded results bit for bit.
 
 Entry points run on the card by default (``device="cuda"``) and raise
 when there is none; pass ``device="cpu"`` to run on the CPU.
@@ -42,6 +42,7 @@ when there is none; pass ``device="cpu"`` to run on the CPU.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Callable, Dict, Mapping, Sequence, Tuple
 
 import numpy as np
@@ -52,8 +53,9 @@ from repro_torch.analysis.costs import job_comm_terms
 from repro_torch.configs.base import ArchConfig, ShapeSpec
 from repro_torch.configs.registry import get_config
 from repro_torch.device import resolve_device
-from repro_torch.net.sender import (SenderParams, SenderSpec, _keys, _points, _run_flows,
-                                    _stack_runs, to_device)
+from repro_torch.net.sender import (Mesh, SenderParams, SenderSpec, _keys, _points,
+                                    _run_flows, _shard_runs, _stack_runs, flow_mesh,
+                                    to_device)
 from repro_torch.net.telemetry import _np, frame_select
 from repro_torch.net.topology import EventSchedule, TopologyParams
 
@@ -70,6 +72,8 @@ __all__ = [
     "run_job_steps",
     "sweep_job_steps",
     "sweep_job_steps_scenarios",
+    "shard_run_job_steps",
+    "shard_sweep_job_steps",
     "run_job",
     "sweep_job",
     "job_ettr",
@@ -313,20 +317,27 @@ def job_step_inputs(
     return scheds, torch.as_tensor(shard, device=scheds.cap_scale.device)
 
 
-def _steps(topo, scheds, spec, sp, shard, key, horizon, dev, plain_spray, on_run, lead):
-    """Every step of one job run: step s runs ``fold_in(key, s)`` on the
-    scenario's rows for step s; returns ``(cct[S], finished[S])`` (the
-    barrier and the all-finished flag), plus the frames stacked on S when
-    the spec carries telemetry.  ``on_run(lead + (s,), out)`` sees each
-    step's raw `run_flows_sized` output."""
+def _step_runs(run, scheds, shard, key, on_run, lead):
+    """Every step of one job run, as ``run(sched, n_packets, key)`` outputs:
+    step s runs ``fold_in(key, s)`` on the scenario's rows for step s, and
+    ``on_run(lead + (s,), out)`` sees each step's raw output."""
     S = int(shard.shape[0])
-    keys = prng.fold_in(key, torch.arange(S, dtype=torch.int64, device=dev))
-    ccts, fins, frames = [], [], []
+    keys = prng.fold_in(key, torch.arange(S, dtype=torch.int64, device=key.device))
+    outs = []
     for s in range(S):
-        out = _run_flows(topo, frame_select(scheds, s), spec, sp, shard[s], keys[s],
-                         horizon, dev, plain_spray)
+        out = run(frame_select(scheds, s), shard[s], keys[s])
         if on_run is not None:
             on_run(lead + (s,), out)
+        outs.append(out)
+    return outs
+
+
+def _barriers(outs, spec):
+    """``(cct[S], finished[S])`` of a job run's step outputs: the barrier
+    (max over the workers) and the all-finished flag, plus the frames
+    stacked on S when the spec carries telemetry."""
+    ccts, fins, frames = [], [], []
+    for out in outs:
         r = out
         if spec.telemetry is not None:
             r, frame = out
@@ -334,7 +345,7 @@ def _steps(topo, scheds, spec, sp, shard, key, horizon, dev, plain_spray, on_run
         ccts.append(r.cct.max())
         fins.append(r.finished.all())
     res = (torch.stack(ccts), torch.stack(fins))
-    return res + (_stack_runs(frames, (S,)),) if frames else res
+    return res + (_stack_runs(frames, (len(outs),)),) if frames else res
 
 
 def run_job_steps(
@@ -369,24 +380,44 @@ def run_job_steps(
     dev = resolve_device(device)
     topo, scheds = to_device(topo, dev), to_device(scheds, dev)
     shard = torch.as_tensor(shard).to(dev)
-    return _steps(topo, scheds, spec, sp, shard, torch.as_tensor(key).to(dev), horizon, dev,
-                  plain_spray, on_run, ())
+
+    def run(sched, n_packets, key):
+        return _run_flows(topo, sched, spec, sp, n_packets, key, horizon, dev, plain_spray)
+
+    return _barriers(_step_runs(run, scheds, shard, torch.as_tensor(key).to(dev), on_run, ()),
+                     spec)
 
 
-def _sweep_steps(topo, scheds, spec, points, shard, keys, horizon, dev, on_run, lead):
-    M = int(shard.shape[0])
-    runs = []
+def _sweep_step_runs(run, scheds, points, shard, keys, on_run, lead):
+    """Every step of every (point, draw, model), in that row-major order, as
+    ``run(sched, sp, n_packets, key)`` outputs."""
+    outs = []
     for p, point in enumerate(points):
         for d in range(keys.shape[0]):
-            for m in range(M):
-                runs.append(_steps(topo, frame_select(scheds, m), spec, point, shard[m],
-                                   keys[d], horizon, dev, False, on_run, lead + (p, d, m)))
-    axes = (len(points), int(keys.shape[0]), M)
+            for m in range(int(shard.shape[0])):
+                outs += _step_runs(functools.partial(run, sp=point), frame_select(scheds, m),
+                                   shard[m], keys[d], on_run, lead + (p, d, m))
+    return outs
+
+
+def _sweep_barriers(outs, spec, axes):
+    """The step outputs of a sweep over ``axes`` (point, draw, model) folded
+    into ``(cct[*axes, S], finished[*axes, S])`` (and the frames)."""
+    S = len(outs) // int(np.prod(axes))
+    runs = [_barriers(outs[i:i + S], spec) for i in range(0, len(outs), S)]
     out = tuple(torch.stack([r[i] for r in runs]).reshape(axes + tuple(runs[0][i].shape))
                 for i in range(2))
     if spec.telemetry is not None:
         out = out + (_stack_runs([r[2] for r in runs], axes),)
     return out
+
+
+def _sweep_steps(topo, scheds, spec, points, shard, keys, horizon, dev, on_run, lead):
+    def run(sched, n_packets, key, *, sp):
+        return _run_flows(topo, sched, spec, sp, n_packets, key, horizon, dev, False)
+
+    outs = _sweep_step_runs(run, scheds, points, shard, keys, on_run, lead)
+    return _sweep_barriers(outs, spec, (len(points), int(keys.shape[0]), int(shard.shape[0])))
 
 
 def sweep_job_steps(
@@ -448,6 +479,52 @@ def sweep_job_steps_scenarios(
     if spec.telemetry is not None:
         out = out + (_stack_runs([r[2] for r in runs], (C,)),)
     return out
+
+
+def shard_run_job_steps(
+    topo: TopologyParams,
+    scheds: EventSchedule,
+    spec: SenderSpec,
+    sp: SenderParams,
+    shard: torch.Tensor,
+    key: torch.Tensor,
+    horizon: int = 2048,
+    *,
+    mesh: Mesh | None = None,
+):
+    """`run_job_steps` with the W ring flows sharded over ``mesh``
+    (`sender.flow_mesh`; default: every visible card): bit-identical
+    ``(cct[S], finished[S])``.  Every rank runs every step on its block of
+    the flows; a step's barrier is the max over all ranks' flows and its
+    finished flag their AND, as in the reference.  Telemetry is not
+    supported on this path."""
+    mesh = flow_mesh() if mesh is None else mesh
+    outs = _shard_runs(mesh, [topo], spec, horizon, lambda run, d: _step_runs(
+        lambda sched, n, k: run(0, sched, sp, n, k), *d, None, ()),
+        (scheds, torch.as_tensor(shard), torch.as_tensor(key)))
+    return _barriers(outs, spec)
+
+
+def shard_sweep_job_steps(
+    topo: TopologyParams,
+    scheds: EventSchedule,
+    spec: SenderSpec,
+    sp: SenderParams,
+    shard: torch.Tensor,
+    keys: torch.Tensor,
+    horizon: int = 2048,
+    *,
+    mesh: Mesh | None = None,
+):
+    """`sweep_job_steps` sharded over the ring-flow axis: bit-identical
+    ``(cct[P, D, M, S], finished[P, D, M, S])``, the policy, draw and model
+    axes run one after another inside every rank."""
+    mesh = flow_mesh() if mesh is None else mesh
+    points, keys, shard = _points(sp), _keys(keys, "cpu"), torch.as_tensor(shard)
+    outs = _shard_runs(mesh, [topo], spec, horizon, lambda run, d: _sweep_step_runs(
+        lambda sched, n, k, *, sp: run(0, sched, sp, n, k), d[0], points, d[1], d[2], None,
+        ()), (scheds, shard, keys))
+    return _sweep_barriers(outs, spec, (len(points), int(keys.shape[0]), int(shard.shape[0])))
 
 
 def job_ettr(
@@ -532,16 +609,19 @@ def sweep_job(
     `TelemetryFrame` whose leaves carry leading [P, D, M, S] sweep axes
     (peel with `telemetry.frame_select`).
 
-    `mesh` (the reference's flow-sharded sweep) is not ported yet and
-    raises `NotImplementedError` (flow sharding, ROADMAP queue 1)."""
-    if mesh is not None:
-        raise NotImplementedError("the flow-sharded job sweep is not ported yet "
-                                  "(flow sharding, ROADMAP queue 1)")
+    With ``mesh`` (a `sender.flow_mesh`) the raw sweep runs flow-sharded on
+    the mesh's devices through `shard_sweep_job_steps`, and ``device`` is
+    not read: bit-identical outputs, so every derived metric is too;
+    telemetry capture is not supported sharded."""
     if any(topo.flows != j.workers for j in jobs):
         raise ValueError("every job's workers must equal the topology's flows")
-    dev = resolve_device(device)
-    scheds, shard = job_step_inputs(jobs, sched, horizon, device=dev)
-    out = sweep_job_steps(topo, scheds, spec, sp, shard, keys, horizon, device=dev)
+    if mesh is not None:
+        scheds, shard = job_step_inputs(jobs, sched, horizon, device=mesh.devices[0])
+        out = shard_sweep_job_steps(topo, scheds, spec, sp, shard, keys, horizon, mesh=mesh)
+    else:
+        dev = resolve_device(device)
+        scheds, shard = job_step_inputs(jobs, sched, horizon, device=dev)
+        out = sweep_job_steps(topo, scheds, spec, sp, shard, keys, horizon, device=dev)
     frame = None
     if spec.telemetry is not None:
         cct, finished, frame = out

@@ -15,6 +15,12 @@ The sweeps (`sweep_message`, `sweep_flows`, `sweep_flows_scenarios`) take
 draw) as its own run, one after another: every slice is bit for bit the
 unbatched run, and results gain the reference's leading axes.
 
+The flow-sharded engines (`shard_run_flows`, `shard_sweep_flows`,
+`shard_sweep_flows_scenarios`) split the flow axis over the ranks of a
+`flow_mesh`, one thread a rank with a private process group
+(`repro_torch.ranks`), and give the unsharded results bit for bit (see the
+section at the end of this module).
+
 Random numbers follow the reference's key streams exactly: the per-tick
 keys are split from one loop key up front (`tick_keys`), and each chunk of
 ticks draws its mole uniforms and per-lane integers in one batched call.
@@ -22,6 +28,7 @@ ticks draws its mole uniforms and per-lane integers in one batched call.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Callable, Sequence, Tuple
 
 import torch
@@ -32,6 +39,7 @@ from repro_torch.core.feedback import (ControllerState, PathStats, controller_st
 from repro_torch.core.profile import make_profile, uniform_profile
 from repro_torch.core.spray import SprayMethod, SprayState
 from repro_torch.device import resolve_device
+from repro_torch.kernels.link_fold import LinkSegments
 from repro_torch.net.fabric import FabricParams, fabric_tick, init_fabric
 from repro_torch.net.policies import (ALL_POLICIES, BASELINE_POLICIES, Policy,
                                       assign_lanes, blocks_for, profile_adaptive,
@@ -45,6 +53,7 @@ from repro_torch.net.topology import (EventSchedule, TopologyParams,
                                       shared_fabric_tick)
 from repro_torch.numerics import fold_sum
 from repro_torch.random import M32
+from repro_torch.ranks import DEFAULT_TIMEOUT, Mesh, RankComm, run_ranks
 
 __all__ = ["Policy", "BASELINE_POLICIES", "ALL_POLICIES", "SenderSpec",
            "SenderParams", "SimResult", "sender_params", "stack_params",
@@ -52,7 +61,8 @@ __all__ = ["Policy", "BASELINE_POLICIES", "ALL_POLICIES", "SenderSpec",
            "assign_paths", "tick_keys", "fabric_quiescent", "run_sender",
            "run_message_on", "run_message", "run_flows", "run_flows_sized",
            "sweep_message", "sweep_flows", "sweep_flows_scenarios",
-           "resolve_device", "to_device"]
+           "resolve_device", "to_device", "FLOW_AXIS", "Mesh", "flow_mesh",
+           "shard_run_flows", "shard_sweep_flows", "shard_sweep_flows_scenarios"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -240,16 +250,18 @@ def _settled(spec: SenderSpec, c: _Carry) -> bool:
 def run_sender(spec: SenderSpec, sp: SenderParams, n_packets, horizon: int, *,
                n: int, fabric0, stepper: Callable, mole_size: int,
                latency_f: torch.Tensor, spray0: SprayState, ctrl0: ControllerState,
-               ecmp_path: torch.Tensor, flow_keys: bool, received_fn: Callable,
+               ecmp_path: torch.Tensor, lane_keys: Callable, received_fn: Callable,
                dropped_fn: Callable, k_loop: torch.Tensor,
                link_fn: Callable | None = None,
                tel_link_fn: Callable | None = None, links: int = 0,
-               plain_spray: bool = False):
+               plain_spray: bool = False, settle_reduce: Callable | None = None):
     """The sender tick core over F flows (F = 1 for one message).
 
     stepper(fabric, arrivals[F, n], u[mole_size]) -> (fabric', fb) is the
-    fabric.  ``flow_keys`` splits each tick's lane key into one key per
-    flow (the coupled-flow engine) instead of using it as is.
+    fabric.  ``lane_keys(ka)`` turns a chunk's lane keys ``[T, 2]`` into
+    each flow's key of each tick, ``[T, F, 2]``.  ``settle_reduce(pred)``
+    makes the early-exit predicate of a flow-sharded rank the all-rank one
+    (a bool every rank agrees on), so every rank runs the same chunks.
     ``tel_link_fn(fabric)`` reads the per-link telemetry (queue, served,
     dropped, ecn) of the fabric's ``links`` links, where it has them.
     ``plain_spray`` sends the WAM branch through the kernel's plain version
@@ -352,7 +364,7 @@ def run_sender(spec: SenderSpec, sp: SenderParams, n_packets, horizon: int, *,
         u = prng.uniform(keys[:, 1], (mole_size,))
         lanes = None
         if rng_hi is not None:
-            ka = prng.split(keys[:, 0], F) if flow_keys else keys[:, 0].unsqueeze(1)
+            ka = lane_keys(keys[:, 0])
             lanes = prng.randint(ka, (spec.rate_cap,), 0, rng_hi)
         for i in range(keys.shape[0]):
             lane_i = None if lanes is None else lanes[i]
@@ -370,10 +382,15 @@ def run_sender(spec: SenderSpec, sp: SenderParams, n_packets, horizon: int, *,
         tel = init_frame(tspec, lead, n, links if tel_link_fn is not None else 0,
                          pen_width=pstate0.penalty.shape[-1],
                          ccw_width=pstate0.ccw.shape[-1], device=dev)
+    def settled(c: _Carry) -> bool:
+        if settle_reduce is None:
+            return _settled(spec, c)
+        return settle_reduce(_settled_on_device(spec, c))
+
     chunk = max(1, min(spec.exit_chunk, horizon))
     n_full, rem = divmod(horizon, chunk)
     i = 0
-    while i < n_full and not (spec.early_exit and _settled(spec, carry)):
+    while i < n_full and not (spec.early_exit and settled(carry)):
         carry, tel = run(carry, tel, tkeys[i * chunk:(i + 1) * chunk])
         i += 1
     if rem:
@@ -443,7 +460,8 @@ def run_message_on(fabric0, stepper, latency: torch.Tensor, spec: SenderSpec,
     r = run_sender(spec, sp, n_packets, horizon, n=n, fabric0=fabric0,
                    stepper=stepper, mole_size=mole_size,
                    latency_f=latency.to(torch.float32).reshape(1, n),
-                   spray0=spray0, ctrl0=ctrl0, ecmp_path=ecmp, flow_keys=False,
+                   spray0=spray0, ctrl0=ctrl0, ecmp_path=ecmp,
+                   lane_keys=lambda ka: ka.unsqueeze(1),
                    received_fn=received_fn, dropped_fn=dropped_fn, k_loop=keys[1])
     return _squeeze_flow(r)
 
@@ -464,36 +482,50 @@ def run_message(params: FabricParams, spec: SenderSpec, sp: SenderParams,
 
 def _run_flows(topo: TopologyParams, sched: EventSchedule, spec: SenderSpec,
                sp: SenderParams, n_packets, key: torch.Tensor, horizon: int,
-               device, plain_spray: bool) -> SimResult:
+               device, plain_spray: bool, block: "_FlowBlock | None" = None) -> SimResult:
+    """`run_flows_sized`; with ``block``, the block of one rank of a
+    flow-sharded run: ``topo`` is then the flow-padded topology and the
+    result holds the block's flows (the link counters are every flow's)."""
     dev = resolve_device(device)
     topo, sched = to_device(topo, dev), to_device(sched, dev)
-    F, n = topo.flows, topo.n
+    n = topo.n
+    if block is None:
+        block = _FlowBlock(None, topo.flows, topo.flows, None)
+    F = block.flows
+    topo = block.local_topology(topo)
     mask = (1 << spec.ell) - 1
-    fidx = torch.arange(F, dtype=torch.int64, device=dev)
+    fidx = torch.arange(block.lo, block.lo + block.size, dtype=torch.int64, device=dev)
     prof = uniform_profile(n, spec.ell, device=dev)
-    ctrl0 = make_controller(make_profile(prof.b.expand(F, n), spec.ell))
+    ctrl0 = make_controller(make_profile(prof.b.expand(block.size, n), spec.ell))
     spray0 = SprayState(
-        j=torch.zeros(F, dtype=torch.int64, device=dev),
+        j=torch.zeros(block.size, dtype=torch.int64, device=dev),
         sa=(sp.sa + fidx * 0x9E3779B9) & mask,
         sb=((sp.sb + 2 * fidx) & mask) | 1,
         ell=spec.ell, method=int(spec.method))
     keys = prng.split(key.to(dev), 2)
-    ecmp = prng.randint(keys[0], (F,), 0, n)
+    # every per-flow draw is made at the real flow count F, then padded and
+    # sliced: threefry splits are not prefix-stable in their count
+    ecmp = block.local(prng.randint(keys[0], (F,), 0, n), 0)
     if torch.is_tensor(n_packets):
         n_packets = n_packets.to(dev)
+    if block.comm is not None:
+        n_packets = block.local(torch.as_tensor(n_packets, device=dev).expand(F), 0, fill=0)
 
     def stepper(state, arrivals, u):
-        return shared_fabric_tick(topo, sched, state, arrivals, u)
+        return shared_fabric_tick(topo, sched, state, arrivals, u, gather=block.gather,
+                                  segments=block.segments)
 
     return run_sender(
         spec, sp, n_packets, horizon, n=n, fabric0=init_shared_fabric(topo),
         stepper=stepper, mole_size=topo.links,
         latency_f=topo.latency.to(torch.float32), spray0=spray0, ctrl0=ctrl0,
-        ecmp_path=ecmp, flow_keys=True, received_fn=lambda s: s.received,
+        ecmp_path=ecmp, lane_keys=lambda ka: block.local(prng.split(ka, F), 1),
+        received_fn=lambda s: s.received,
         dropped_fn=lambda s: s.dropped, k_loop=keys[1],
         link_fn=lambda s: (s.link_served, s.link_busy),
         tel_link_fn=lambda s: link_telemetry(topo, s), links=topo.links,
-        plain_spray=plain_spray)
+        plain_spray=plain_spray,
+        settle_reduce=None if block.comm is None else block.comm.all_true)
 
 
 def run_flows(topo: TopologyParams, sched: EventSchedule, spec: SenderSpec,
@@ -572,6 +604,14 @@ def sweep_flows(topo: TopologyParams, sched: EventSchedule, spec: SenderSpec,
     return _stack_runs(runs, (len(points), keys.shape[0]))
 
 
+def _scenario_count(topos: TopologyParams, scheds: EventSchedule) -> int:
+    C = int(topos.route.shape[0])
+    if scheds.cap_scale.dim() != 3 or int(scheds.cap_scale.shape[0]) != C:
+        raise ValueError(f"{C} topologies need {C} stacked schedules, got "
+                         f"{tuple(scheds.cap_scale.shape)}")
+    return C
+
+
 def sweep_flows_scenarios(topos: TopologyParams, scheds: EventSchedule, spec: SenderSpec,
                           sp: SenderParams, n_packets: int, keys: torch.Tensor,
                           horizon: int = 4096, *, device="cuda",
@@ -581,14 +621,242 @@ def sweep_flows_scenarios(topos: TopologyParams, scheds: EventSchedule, spec: Se
     scheds[c], ...)``, and ``on_run((c, p, d), out)`` is called after each
     run."""
     points, dev = _points(sp), resolve_device(device)
-    C = int(topos.route.shape[0])
-    if scheds.cap_scale.dim() != 3 or int(scheds.cap_scale.shape[0]) != C:
-        raise ValueError(f"{C} topologies need {C} stacked schedules, got "
-                         f"{tuple(scheds.cap_scale.shape)}")
+    C = _scenario_count(topos, scheds)
     keys = _keys(keys, dev)
     scenarios = [(to_device(frame_select(topos, c), dev),
                   to_device(frame_select(scheds, c), dev)) for c in range(C)]
     runs = _sweep(lambda ts, p, k: _run_flows(*ts, spec, p, n_packets, k, horizon, dev,
                                               False),
                   points, keys, scenarios, on_run)
+    return _stack_runs(runs, (C, len(points), keys.shape[0]))
+
+
+# --------------------------------------------------------------------------
+# Flow-sharded execution: the flow axis split over the ranks of a mesh.
+#
+# The flow axis is split into contiguous blocks, one per rank (a thread with
+# a private process group, `repro_torch.ranks`); every input is replicated.
+# Bit-identity with the unsharded engine is by construction, as in the
+# reference:
+#
+#   * every per-flow random stream (each tick's `split(ka, F)`, the ECMP
+#     hash draw, the spray seeds from the global flow index) is derived at
+#     the real flow count F and then padded and sliced: threefry splits are
+#     not prefix-stable in their count;
+#   * the two per-link sums of `shared_fabric_tick` gather the flow axis
+#     first and fold it over the padded route's segments, in the unsharded
+#     order, so the drop and serve fractions, and through them every local
+#     per-flow value, match the unsharded run bit for bit;
+#   * padding flows (F not divisible by the rank count) carry 0 packets:
+#     they complete at tick 0, emit nothing and add an exact +0.0 to every
+#     link sum;
+#   * the early-exit predicate is the all-rank AND (`RankComm.all_true`), so
+#     every rank runs the unsharded chunk count.
+#
+# Telemetry is not supported on this path; the unsharded engine is the
+# observability path.
+# --------------------------------------------------------------------------
+
+FLOW_AXIS = "flows"
+_FLOW_FIELDS = ("cct", "sent_total", "dropped_total", "final_b", "received", "finished")
+
+
+def flow_mesh(n_devices: int | None = None, *, device="cuda",
+              timeout: float = DEFAULT_TIMEOUT) -> Mesh:
+    """The ranks of the `FLOW_AXIS` that the shard_* engines split flows over.
+
+    On the card (the default) the ranks go round the visible cards, one a
+    card unless ``n_devices`` asks for more (then ranks share a card and
+    talk through gloo); ``n_devices`` defaults to every visible card, and a
+    device with an index (``"cuda:1"``) holds every rank.  On the CPU
+    (``device="cpu"``) there are ``n_devices`` ranks, default 1.
+    ``timeout`` bounds each collective's wait, in seconds."""
+    dev = resolve_device(device)
+    if n_devices is not None and n_devices < 1:
+        raise ValueError(f"flow_mesh needs at least one rank, got {n_devices}")
+    if dev.type != "cuda":
+        return Mesh((dev,) * (n_devices or 1), float(timeout))
+    if dev.index is not None:
+        return Mesh((dev,) * (n_devices or 1), float(timeout))
+    cards = torch.cuda.device_count()
+    n = cards if n_devices is None else n_devices
+    return Mesh(tuple(torch.device("cuda", r % cards) for r in range(n)), float(timeout))
+
+
+def _pad_flow_axis(x: torch.Tensor, F_pad: int, dim: int, fill=None) -> torch.Tensor:
+    """Pad ``dim`` (the flow axis) of ``x`` up to F_pad: edge-repeat by
+    default (valid link ids, keys and paths), the constant ``fill`` on
+    request."""
+    dim = dim % x.dim()
+    pad = F_pad - int(x.shape[dim])
+    if pad == 0:
+        return x
+    shape = list(x.shape)
+    shape[dim] = pad
+    if fill is None:
+        tail = x.narrow(dim, int(x.shape[dim]) - 1, 1).expand(shape)
+    else:
+        tail = torch.full(shape, fill, dtype=x.dtype, device=x.device)
+    return torch.cat([x, tail], dim)
+
+
+def _pad_topology(topo: TopologyParams, F_pad: int) -> TopologyParams:
+    """Pad the per-flow leaves (route [..., F, n], latency [..., F, n]) up
+    to F_pad flows.  Edge-repeat keeps the padded routes valid link ids;
+    padded flows never emit, so their +0.0 link contributions are exact."""
+    return dataclasses.replace(
+        topo, route=_pad_flow_axis(topo.route, F_pad, -2),
+        latency=_pad_flow_axis(topo.latency, F_pad, -2))
+
+
+@dataclasses.dataclass(frozen=True)
+class _FlowBlock:
+    """Rank ``comm.rank``'s contiguous block of the flow axis padded from
+    ``flows`` to ``padded`` flows; without ``comm``, the whole unpadded
+    axis.  ``segments`` is the padded route's CSR."""
+
+    comm: RankComm | None
+    flows: int
+    padded: int
+    segments: LinkSegments | None
+
+    @property
+    def size(self) -> int:
+        return self.padded if self.comm is None else self.padded // self.comm.size
+
+    @property
+    def lo(self) -> int:
+        return 0 if self.comm is None else self.comm.rank * self.size
+
+    @property
+    def gather(self) -> Callable | None:
+        if self.comm is None:
+            return None
+        return functools.partial(self.comm.all_gather, dim=-2)
+
+    def local(self, x: torch.Tensor, dim: int, fill=None) -> torch.Tensor:
+        """The block of ``x``, whose ``dim`` holds the F real flows: padded
+        (edge or ``fill``), then sliced."""
+        if self.comm is None:
+            return x
+        return _pad_flow_axis(x, self.padded, dim, fill).narrow(dim, self.lo, self.size)
+
+    def local_topology(self, topo: TopologyParams) -> TopologyParams:
+        """The block of the flow-padded ``topo``."""
+        if self.comm is None:
+            return topo
+        return dataclasses.replace(topo, route=topo.route.narrow(1, self.lo, self.size),
+                                   latency=topo.latency.narrow(0, self.lo, self.size))
+
+
+def _stitch(parts: Sequence[SimResult], F: int, dev: torch.device) -> SimResult:
+    """One run whole from its ranks' blocks: the per-flow fields
+    concatenated in rank order with the padding cut off; the link
+    counters and ticks, which every rank holds alike, from rank 0."""
+    flow = {k: torch.cat([getattr(p, k).to(dev) for p in parts])[:F] for k in _FLOW_FIELDS}
+    return dataclasses.replace(parts[0], **flow, link_served=parts[0].link_served.to(dev),
+                               link_busy=parts[0].link_busy.to(dev),
+                               ticks_run=parts[0].ticks_run.to(dev))
+
+
+def _on_device(obj, dev: torch.device):
+    """``obj`` with every tensor in it on ``dev``: a tensor, a dataclass of
+    tensors, or a tuple, list or dict of them; anything else as it is."""
+    if torch.is_tensor(obj):
+        return obj.to(dev)
+    if dataclasses.is_dataclass(obj) and not isinstance(obj, type):
+        return to_device(obj, dev)
+    if isinstance(obj, (tuple, list)):
+        return type(obj)(_on_device(x, dev) for x in obj)
+    if isinstance(obj, dict):
+        return {k: _on_device(v, dev) for k, v in obj.items()}
+    return obj
+
+
+def _shard_runs(mesh: Mesh, topos: Sequence[TopologyParams], spec: SenderSpec,
+                horizon: int, loop: Callable, data) -> list:
+    """Run ``loop(run, data)`` on every rank of ``mesh``, one thread a rank,
+    where ``run(c, sched, sp, n_packets, key)`` is the rank's block of
+    ``run_flows_sized(topos[c], sched, spec, sp, n_packets, key, horizon)``
+    and ``loop`` returns its runs' outputs as a list (the same runs on every
+    rank, in the same order).  Returns those runs whole, on the first rank's
+    device.
+
+    Everything a rank reads is on its device before the ranks start: each
+    padded topology with its segments (built once a call, on the host) and
+    ``data`` (`_on_device`).  A rank that copied from another card while a
+    rank there waits in an NCCL collective would wait behind that
+    collective, which waits for it."""
+    if spec.telemetry is not None:
+        raise NotImplementedError(
+            "telemetry capture is not supported on the flow-sharded path; "
+            "use the unsharded engine for observability runs")
+    F = topos[0].flows
+    if any(t.flows != F for t in topos):
+        raise ValueError("the topologies of one sharded call hold one flow count")
+    F_pad = -(-F // mesh.size) * mesh.size
+    devices = list(dict.fromkeys(mesh.devices))
+    padded = [_pad_topology(topo, F_pad) for topo in topos]
+    on = {dev: ([to_device(t, dev) for t in padded], _on_device(data, dev)) for dev in devices}
+    for topos_dev, _ in on.values():
+        for t in topos_dev:
+            t.segments  # noqa: B018 - builds the cached CSR before the ranks start
+
+    def body(comm: RankComm) -> list:
+        topos_dev, data_dev = on[comm.device]
+        blocks = [_FlowBlock(comm, F, F_pad, t.segments) for t in topos_dev]
+
+        def run(c, sched, sp, n_packets, key):
+            return _run_flows(topos_dev[c], sched, spec, sp, n_packets, key, horizon,
+                              comm.device, False, blocks[c])
+
+        return loop(run, data_dev)
+
+    per_rank = run_ranks(mesh, body)
+    return [_stitch(parts, F, mesh.devices[0]) for parts in zip(*per_rank)]
+
+
+def shard_run_flows(topo: TopologyParams, sched: EventSchedule, spec: SenderSpec,
+                    sp: SenderParams, n_packets, key: torch.Tensor, horizon: int = 4096, *,
+                    mesh: Mesh | None = None) -> SimResult:
+    """`run_flows` sharded over the flow axis on ``mesh`` (`flow_mesh`;
+    default: every visible card).
+
+    Bit-identical to the unsharded `run_flows` / `run_flows_sized` for any
+    flow count (counts the ranks do not divide are padded with silent flows
+    and cut back off).  ``n_packets`` may be a scalar or a per-flow [F]
+    vector."""
+    mesh = flow_mesh() if mesh is None else mesh
+    return _shard_runs(mesh, [topo], spec, horizon,
+                       lambda run, d: [run(0, d[0], sp, d[1], d[2])],
+                       (sched, n_packets, torch.as_tensor(key)))[0]
+
+
+def shard_sweep_flows(topo: TopologyParams, sched: EventSchedule, spec: SenderSpec,
+                      sp: SenderParams, n_packets, keys: torch.Tensor, horizon: int = 4096,
+                      *, mesh: Mesh | None = None) -> SimResult:
+    """`sweep_flows` sharded over the flow axis: ``cct[P, D, F]``, the
+    sweep's runs one after another inside every rank (the ranks stay in
+    step)."""
+    mesh = flow_mesh() if mesh is None else mesh
+    points, keys = _points(sp), _keys(keys, "cpu")
+    runs = _shard_runs(mesh, [topo], spec, horizon, lambda run, d: _sweep(
+        lambda c, p, k: run(c, d[0], p, d[1], k), points, d[2], [0]), (sched, n_packets, keys))
+    return _stack_runs(runs, (len(points), keys.shape[0]))
+
+
+def shard_sweep_flows_scenarios(topos: TopologyParams, scheds: EventSchedule,
+                                spec: SenderSpec, sp: SenderParams, n_packets,
+                                keys: torch.Tensor, horizon: int = 4096, *,
+                                mesh: Mesh | None = None) -> SimResult:
+    """`sweep_flows_scenarios` sharded over the flow axis: ``cct[C, P, D,
+    F]``, bit-identical to the unsharded family sweep."""
+    mesh = flow_mesh() if mesh is None else mesh
+    points, keys = _points(sp), _keys(keys, "cpu")
+    C = _scenario_count(topos, scheds)
+    topo_c = [frame_select(topos, c) for c in range(C)]
+    sched_c = [frame_select(scheds, c) for c in range(C)]
+    runs = _shard_runs(mesh, topo_c, spec, horizon, lambda run, d: _sweep(
+        lambda c, p, k: run(c, d[0][c], p, d[1], k), points, d[2], range(C)),
+        (sched_c, n_packets, keys))
     return _stack_runs(runs, (C, len(points), keys.shape[0]))

@@ -22,6 +22,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+from typing import Callable
 
 import numpy as np
 import torch
@@ -350,12 +351,27 @@ def scatter_delivery(arrive_ring: torch.Tensor, slot: torch.Tensor,
 
 def shared_fabric_tick(topo: TopologyParams, sched: EventSchedule,
                        state: SharedFabricState, arrivals: torch.Tensor,
-                       u: torch.Tensor):
+                       u: torch.Tensor, *, gather: Callable | None = None,
+                       segments: LinkSegments | None = None):
     """Advance one tick; feedback per flow ([F, n], landed [F]).  ``u`` is
-    the tick's per-link mole draw ``random.uniform(key, (L,))``."""
+    the tick's per-link mole draw ``random.uniform(key, (L,))``.
+
+    With ``gather`` set, the tick runs on one rank's contiguous block of a
+    flow-sharded run (the reference's ``axis_name=`` / ``route_global=``):
+    ``topo.route`` is the block's ``[H, F_loc, n]`` slice, ``gather(x)``
+    concatenates every rank's ``x [..., F_loc, n]`` along the flow axis in
+    rank order, and ``segments`` is the CSR of the whole padded route.  The
+    two per-link sums fold the gathered values over ``segments``, so every
+    rank computes the same link state, in the unsharded order (a padded
+    flow adds an exact +0.0), and the rest indexes the block's own flows."""
     route = topo.route.to(torch.int64)
-    seg = topo.segments
     t = state.t
+    if gather is None:
+        seg = topo.segments
+    elif segments is None:
+        raise ValueError("gather requires the padded route's segments")
+    else:
+        seg = segments
 
     go_down = (~state.degraded) & (u < topo.degrade_p)
     go_up = state.degraded & (u < topo.recover_p)
@@ -370,8 +386,11 @@ def shared_fabric_tick(topo: TopologyParams, sched: EventSchedule,
     q_in = state.queue + inflow
     bg_q = state.bg_queue + bg_in
 
-    backlog = _link_sum(q_in, seg, bg_q)
-    incoming = _link_sum(inflow, seg, bg_in)
+    q_all, inflow_all = q_in, inflow
+    if gather is not None:
+        q_all, inflow_all = gather(torch.stack([q_in, inflow])).unbind(0)
+    backlog = _link_sum(q_all, seg, bg_q)
+    incoming = _link_sum(inflow_all, seg, bg_in)
     dropable = torch.minimum(torch.clamp_min(backlog - topo.queue_limit, 0.0), incoming)
     zero = torch.zeros_like(incoming)
     drop_frac = torch.where(incoming > 0, dropable / torch.clamp_min(incoming, 1e-9), zero)

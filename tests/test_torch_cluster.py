@@ -237,9 +237,11 @@ def test_sweep_cluster_equals_reference(jobs):
                             HORIZON, device="cpu")
     _same_metrics(want, got, "straggler_job_a")
     assert got.ettr.shape == (len(POLICIES), 1, 2) and bool(got.finished.all())
-    with pytest.raises(NotImplementedError, match=r"flow sharding, ROADMAP queue 1"):
-        tcl.sweep_cluster(gt, gs, _spec(tsender, POLICIES), _sp(tsender, POLICIES), gc, keys,
-                          HORIZON, mesh=object(), device="cpu")
+    # flow-sharded over two ranks: every metric equal
+    _same_metrics(want, tcl.sweep_cluster(gt, gs, _spec(tsender, POLICIES),
+                                          _sp(tsender, POLICIES), gc, keys, HORIZON,
+                                          mesh=tsender.flow_mesh(2, device="cpu")),
+                  "straggler_job_a over two ranks")
 
 
 def test_run_cluster_disjoint_slowdown_is_one(jobs):

@@ -243,10 +243,13 @@ def test_sweep_job_equals_reference(library_runs):
     for k in want:
         _equal(want[k], got[k], k)
     assert got["cct"].shape == (len(SWEEP_POLICIES), 2, 1, tj[0].total_steps)
-    with pytest.raises(NotImplementedError, match=r"flow sharding, ROADMAP queue 1"):
-        tjobs.sweep_job(topo_t, sched_t, _spec(tsender, POLICIES),
-                        tsender.policy_sweep_params([tsender.Policy.WAM], rate=RATE), tj,
-                        keys, HORIZON, mesh=object(), device="cpu")
+    # flow-sharded over two ranks: WAM's first draw, equal to its slice
+    sharded = tjobs.sweep_job(topo_t, sched_t, _spec(tsender, SWEEP_POLICIES),
+                              tsender.policy_sweep_params([tsender.Policy.WAM], rate=RATE), tj,
+                              keys[:1], HORIZON, mesh=tsender.flow_mesh(2, device="cpu"))
+    wam = SWEEP_POLICIES.index("WAM")
+    for k in want:
+        _equal(want[k][wam:wam + 1, :1], sharded[k], ("mesh", k))
 
 
 def test_run_job_with_telemetry_equals_reference(library_runs):

@@ -19,10 +19,12 @@ PORT_FILES = (sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "ch
 PORT_TESTS = sorted((ROOT / "tests").glob("test_torch_*.py"))
 # process-wide state a test file must not touch while it is imported: the
 # module table (a stub left there leaks into every later file of the
-# worker), JAX's config and torch's global defaults
+# worker), JAX's config, torch's global defaults, a default process group
+# and the environment
 GLOBAL_STATE = ("sys.modules", "jax.config", "torch.set_default", "torch.set_float32_matmul",
                 "torch.use_deterministic", "torch.backends", "torch.manual_seed",
-                "torch.set_grad_enabled", "np.random.seed", "numpy.random.seed")
+                "torch.set_grad_enabled", "np.random.seed", "numpy.random.seed",
+                "torch.distributed.init_process_group", "os.environ[")
 
 
 def _load(name, path):
@@ -176,6 +178,7 @@ def test_entry_points_default_to_the_card():
     from repro_torch.models import model
     from repro_torch.net import (cluster, collectives, fountain, jobs, scenarios, sender,
                                  topology, transport)
+    from repro_torch.net.telemetry import frame_select
     from repro_torch.serve_router import Router
     smoke = _load("chip_smoke", ROOT / "chip_smoke.py")
     cfg = transport.TransportConfig(policy=transport.Policy.WAM, rate=4)
@@ -231,6 +234,22 @@ def test_entry_points_default_to_the_card():
         lambda: collectives.allreduce_cct(smoke.golden_fabric(4, "cpu"), cfg, ccfg, key),
         lambda: jobsim.main(["--max-shard", "16", "--horizon", "16", "--iterations", "1"]),
         lambda: clustersim.main(["--max-shard", "16", "--horizon", "16"]),
+        lambda: jobsim.main(["--max-shard", "16", "--horizon", "16", "--iterations", "1",
+                             "--devices", "2"]),
+        lambda: clustersim.main(["--max-shard", "16", "--horizon", "16", "--devices", "2"]),
+        lambda: sender.flow_mesh(),
+        lambda: sender.flow_mesh(2),
+        lambda: sender.shard_run_flows(topo, sched, cfg.spec(), cfg.params(), 8, key, 16),
+        lambda: sender.shard_sweep_flows(topo, sched, cfg.spec(), sweep, 8, keys, 16),
+        lambda: sender.shard_sweep_flows_scenarios(*scenarios.stack_scenarios([(topo, sched)]),
+                                                   cfg.spec(), sweep, 8, keys, 16),
+        lambda: jobs.shard_run_job_steps(ring, frame_select(jscheds, 0), cfg.spec(),
+                                         cfg.params(), shard[0], key, 16),
+        lambda: jobs.shard_sweep_job_steps(ring, jscheds, cfg.spec(), sweep, shard, keys, 16),
+        lambda: cluster.shard_run_cluster_rounds(ctopo, cscheds, cfg.spec(), cfg.params(),
+                                                 sizes, key, 16),
+        lambda: cluster.shard_sweep_cluster_rounds(ctopo, cscheds, cfg.spec(), sweep, sizes,
+                                                   keys, 16),
         lambda: _load("torch_quickstart", ROOT / "examples" / "torch_quickstart.py").main([]),
     ]
     for call in calls:
